@@ -1,0 +1,443 @@
+"""SymExecWrapper + AnalysisContext: wire the engine to the modules.
+
+PyTorch counterpart of the JAX package's ``analysis/symbolic.py``. The
+wrapper builds the corpus + frontier on the device, runs the chunked
+``sym_run`` loop per transaction (with ``--execution-timeout`` pacing),
+and after each transaction hands the detection modules an
+:class:`AnalysisContext` holding a numpy snapshot of the frontier
+(``SymFrontier.to_numpy()``) — the host side reads fields by name, as it
+does on the JAX frontier.
+
+Supported: single-contract and batched runtime analysis, ``bfs``
+strategy, spill/defer of starved forks, one fork block. Refused before
+any device work (:func:`check_supported`): bytecode with CALL-family or
+CREATE opcodes, creation transactions, other strategies, fork blocks,
+the berlin gas schedule, checkpoints, the instruction profiler and
+dynamic loading.
+"""
+
+from __future__ import annotations
+
+import logging
+import time
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from ..config import DEFAULT_LIMITS, LimitsConfig
+from ..core import Corpus, make_env
+from ..core import interpreter as ci
+from ..core.frontier import ATTACKER_ADDRESS, CAP_TRAPS, TRAP_NAMES
+from ..device import resolve_device
+from ..disassembler import ContractImage
+from ..obs import metrics as obs_metrics
+from ..obs import trace as obs_trace
+from ..smt.eval import Assignment
+from ..smt.solver import solve_tape
+from ..smt.tape import (HostNode, HostTape, TapeHostCache, extract_tape,
+                        intern_node)
+from ..symbolic import SymSpec, between_txs, make_sym_frontier, sym_run
+from ..symbolic.engine import rebalance_parked
+from ..support import check_bytecodes_supported, UnsupportedConfiguration
+
+log = logging.getLogger(__name__)
+
+
+@dataclass
+class AnalysisContext:
+    """Batched view of one finished exploration, handed to modules."""
+
+    sf: object               # final SymFrontier, numpy leaves (to_numpy)
+    corpus: object           # the Corpus, numpy leaves
+    limits: LimitsConfig
+    contract_names: List[str]
+    solver_iters: int = 400
+    solver_timeout: Optional[float] = None  # seconds per query (None = off)
+    # lanes newly errored during THIS transaction, per trap name (filled by
+    # SymExecWrapper; None for standalone contexts, where coverage falls
+    # back to reading the snapshot directly)
+    trap_counts: Optional[Dict[str, int]] = None
+    # exploration of this tx stopped on the wall-clock deadline, not
+    # quiescence (reference: --execution-timeout degrade, SURVEY §5.3)
+    timed_out: bool = False
+    _tapes: Dict[int, HostTape] = field(default_factory=dict)
+    _tape_cache: Optional[TapeHostCache] = field(default=None, repr=False)
+    _tape_idx: Dict[int, dict] = field(default_factory=dict, repr=False)
+
+    def lanes(self, include_errors: bool = False,
+              include_reverted: bool = False) -> np.ndarray:
+        """Lane indices that hold surviving paths. Exceptional halts are
+        discarded like the reference's VmException states; reverted paths
+        are excluded by default — a reverting transaction has no effect,
+        so predicates witnessed only on a revert path (e.g. the guard
+        branch of a SafeMath add) are not findings. The Exceptions module
+        opts into error lanes explicitly."""
+        act = np.asarray(self.sf.base.active)
+        err = np.asarray(self.sf.base.error)
+        rev = np.asarray(self.sf.base.reverted)
+        keep = act.copy()
+        if not include_errors:
+            keep &= ~err
+        if not include_reverted:
+            keep &= ~rev
+        return np.where(keep)[0]
+
+    def tape(self, lane: int) -> HostTape:
+        if lane not in self._tapes:
+            if self._tape_cache is None:
+                self._tape_cache = TapeHostCache(self.sf)
+            self._tapes[lane] = extract_tape(self.sf, lane,
+                                             cache=self._tape_cache)
+        return self._tapes[lane]
+
+    def tape_index(self, lane: int) -> dict:
+        """Cached ``node_index`` of the lane's base tape. Callers that
+        intern extra nodes must COPY it (``dict(...)``) first — the cached
+        index must keep describing the unmutated base tape."""
+        if lane not in self._tape_idx:
+            from ..smt.tape import node_index
+
+            self._tape_idx[lane] = node_index(self.tape(lane).nodes)
+        return self._tape_idx[lane]
+
+    def solve(self, lane: int, extra_constraints=(),
+              extra_nodes=()) -> Optional[Assignment]:
+        """Witness for the lane's path condition + extra (node, sign)
+        constraints. ``extra_nodes`` are INTERNED onto the tape (callers
+        still address them as if appended at ``len(tape.nodes)+k`` —
+        constraint ids in that range are remapped): a predicate node the
+        path already carries shares its id, so an already-asserted
+        opposite sign becomes a provable polarity conflict (unsat)
+        instead of an exhausted witness search (unknown)."""
+        from ..symbolic.ops import SymOp
+
+        base = self.tape(lane)
+        nodes = list(base.nodes)
+        idx = dict(self.tape_index(lane))
+        n0 = len(nodes)
+        remap = []
+        for n in extra_nodes:
+            # an extra node may reference an earlier extra node by its
+            # pre-intern (positional) id — but ONLY ops whose operands
+            # ARE node ids get remapped: FREE carries (kind, index) and
+            # CONST carries payload, either of which can numerically
+            # exceed n0 without being a reference
+            a, b = n.a, n.b
+            if n.op not in (int(SymOp.FREE), int(SymOp.CONST)):
+                a = remap[a - n0] if a >= n0 else a
+                b = remap[b - n0] if b >= n0 else b
+            remap.append(intern_node(nodes, HostNode(n.op, a, b, n.imm), idx))
+        cons = list(base.constraints) + [
+            (remap[i - n0] if i >= n0 else i, s)
+            for i, s in extra_constraints
+        ]
+        t = HostTape(nodes=nodes, constraints=cons)
+        return solve_tape(t, max_iters=self.solver_iters,
+                          max_time=self.solver_timeout)
+
+    def contract_of(self, lane: int) -> int:
+        return int(np.asarray(self.sf.base.contract_id[lane]))
+
+    def cid_name(self, cid: int) -> str:
+        """Display name for a recorded contract id (modules should prefer a
+        per-event ``*_cid`` over ``contract_of``: an event recorded inside a
+        callee frame belongs to the callee's code, not the lane's home
+        contract)."""
+        if 0 <= cid < len(self.contract_names):
+            return self.contract_names[cid]
+        return f"contract_{cid}"
+
+    def contract_name(self, lane: int) -> str:
+        return self.cid_name(self.contract_of(lane))
+
+    def tx_sequence(self, asn: Assignment) -> List[dict]:
+        """Render a witness as the reference-style concrete tx list (one
+        entry per symbolic transaction). All `calldatasize` bytes are
+        emitted — trimming zeros would change CALLDATASIZE on replay and
+        can flip size-check branches."""
+        from ..symbolic.ops import FreeKind
+
+        origin = asn.scalars.get((int(FreeKind.ORIGIN), 0), asn.caller)
+        out = []
+        for t in asn.txs:
+            size = t.calldatasize if t.calldatasize is not None else len(t.calldata)
+            size = max(0, min(size, len(t.calldata)))
+            out.append({
+                "input": "0x" + bytes(t.calldata[:size]).hex(),
+                "value": hex(t.callvalue),
+                "origin": hex(origin),
+                "caller": hex(t.caller),
+            })
+        return out
+
+
+def _count_traps(err_code: np.ndarray) -> Dict[str, int]:
+    out: Dict[str, int] = {}
+    for code, name in TRAP_NAMES.items():
+        n = int((err_code == code).sum())
+        if n:
+            out[name] = n
+    return out
+
+
+def coverage_summary(tx_contexts) -> dict:
+    """Lost-coverage accounting over a run's per-tx context snapshots.
+
+    The reference silently discards VmException states; here every loss
+    channel is counted so parity claims are auditable (VERDICT.md round-1
+    weak #4): lanes errored per trap cause, forks dropped to capacity,
+    saturated event logs, and propagation kills.
+    """
+    final = tx_contexts[-1].sf
+    limits = tx_contexts[-1].limits
+    errored: dict = {}
+    if all(c.trap_counts is not None for c in tx_contexts):
+        # per-tx tallies (exact even when expand_forks recycled an errored
+        # lane's slot in a later transaction)
+        for c in tx_contexts:
+            for name, n in c.trap_counts.items():
+                errored[name] = errored.get(name, 0) + n
+    else:
+        errored = _count_traps(np.asarray(final.base.err_code))
+    cap_names = {TRAP_NAMES[c] for c in CAP_TRAPS}
+    cap_lost = sum(n for name, n in errored.items() if name in cap_names)
+    # event logs reset per tx, so saturation counts sum across snapshots
+    sat_calls = sum(
+        int((np.asarray(c.sf.n_calls) > limits.call_log).sum()) for c in tx_contexts
+    )
+    sat_arith = sum(
+        int((np.asarray(c.sf.n_arith) > limits.arith_log).sum()) for c in tx_contexts
+    )
+    out = {
+        "lanes": int(np.asarray(final.base.active).shape[0]),
+        "surviving_paths": int(
+            (np.asarray(final.base.active) & ~np.asarray(final.base.error)).sum()
+        ),
+        "lanes_errored": errored,
+        "lanes_lost_to_caps": cap_lost,
+        "dropped_forks": int(np.asarray(final.dropped_total)),
+        "killed_infeasible": int(np.asarray(final.killed_total)),
+        "saturated_call_logs": sat_calls,
+        "saturated_arith_logs": sat_arith,
+    }
+    if any(getattr(c, "timed_out", False) for c in tx_contexts):
+        still_running = int((np.asarray(final.base.active)
+                             & ~np.asarray(final.base.halted)
+                             & ~np.asarray(final.base.error)).sum())
+        out["deadline_expired_running"] = still_running
+    return out
+
+
+class SymExecWrapper:
+    """Build + run the symbolic exploration for a batch of contracts on
+    ``device`` (``"cuda"`` unless the caller asks for ``"cpu"``)."""
+
+    def __init__(
+        self,
+        bytecodes: Sequence[bytes],
+        contract_names: Optional[Sequence[str]] = None,
+        contract_addrs: Optional[Sequence[int]] = None,
+        limits: LimitsConfig = DEFAULT_LIMITS,
+        spec: SymSpec = SymSpec(),
+        lanes_per_contract: int = 64,
+        max_steps: int = 512,
+        solver_iters: int = 400,
+        solver_timeout: Optional[float] = None,
+        transaction_count: int = 1,
+        execution_timeout: Optional[float] = None,
+        deadline_chunk_steps: int = 64,
+        plugins: Sequence = (),
+        strategy: str = "bfs",
+        spill: bool = True,
+        fork_block: int = 0,
+        device="cuda",
+        creation_bytecodes: Optional[Sequence[bytes]] = None,
+        checkpoint_dir: Optional[str] = None,
+        enable_iprof: bool = False,
+        dyn_loader=None,
+    ):
+        from ..plugin.loader import LaserPluginLoader
+
+        # every cut of this engine is refused here, before any device work
+        if creation_bytecodes is not None:
+            raise UnsupportedConfiguration("creation transactions (--creation-code) are "
+                                           "not supported by the PyTorch engine yet")
+        if checkpoint_dir is not None:
+            raise UnsupportedConfiguration("--checkpoint-dir is not supported by the "
+                                           "PyTorch engine yet")
+        if enable_iprof:
+            raise UnsupportedConfiguration("--enable-iprof is not supported by the "
+                                           "PyTorch engine yet")
+        if dyn_loader is not None:
+            raise UnsupportedConfiguration("dynamic loading (--rpc) is not supported by "
+                                           "the PyTorch engine yet")
+        if strategy not in ("bfs", "fifo"):
+            raise UnsupportedConfiguration(f"strategy {strategy!r} is not supported by the "
+                                           "PyTorch engine yet (only bfs)")
+        if fork_block != 0:
+            raise UnsupportedConfiguration("fork_block > 0 is not supported by the PyTorch "
+                                           "engine yet")
+        if limits.gas_schedule != "istanbul":
+            raise UnsupportedConfiguration(f"gas schedule {limits.gas_schedule!r} is not "
+                                           "supported by the PyTorch engine yet")
+        names = list(contract_names or [f"contract_{i}" for i in range(len(bytecodes))])
+        check_bytecodes_supported(bytecodes, names)
+        dev = resolve_device(device)
+        self.device = dev
+
+        self.plugin_loader = LaserPluginLoader()
+        for p in plugins:
+            self.plugin_loader.load(p)
+        self.limits = limits
+        self.spec = spec
+        self.max_steps = max_steps
+        self.timed_out = False
+        self.spill = spill
+        self._parked_end = 0
+        self._rebalanced = 0
+        self._chunk = max(1, deadline_chunk_steps)
+        self._deadline_at = (None if execution_timeout is None
+                             else time.monotonic() + execution_timeout)
+        images = [ContractImage.from_bytecode(c, limits.max_code) for c in bytecodes]
+        C = len(images)
+        self.images = images
+        self.corpus = Corpus.from_images(images, dev)
+        corpus_host = self.corpus.to_numpy()
+        self._visited = torch.zeros((C, limits.max_code), dtype=torch.bool, device=dev)
+        P = C * lanes_per_contract
+        cid0 = np.repeat(np.arange(C, dtype=np.int32), lanes_per_contract)
+        active = np.zeros(P, dtype=bool)
+        active[::lanes_per_contract] = True  # one seed lane per contract
+        sf = make_sym_frontier(
+            P, limits, contract_id=cid0, active=active, n_contracts=C,
+            contract_addrs=(list(contract_addrs) if contract_addrs is not None else None),
+            caller=ATTACKER_ADDRESS, device=dev,
+        )
+        env = make_env(P, device=dev)
+        self.tx_contexts: List[AnalysisContext] = []
+
+        def run_chunk(sf, n):
+            sf, vis = sym_run(sf, env, self.corpus, spec, limits, max_steps=n,
+                              track_coverage=True, defer_starved=self.spill)
+            self._visited |= vis
+            return sf
+
+        def seam(sf):
+            """ONE device->host transfer per chunk boundary, shared by the
+            rebalance planner, the gauges and the quiescence check."""
+            b = sf.base
+            ci.HOST_SYNCS["count"] += 1
+            both = torch.stack([b.active, sf.fork_req, b.running]).cpu().numpy()
+            return both[0], both[1], both[2]
+
+        def explore(sf):
+            """One transaction's exploration, chunked (the JAX wrapper's
+            spill/deadline path: chunk, chunk//4 and tail sizes). Without
+            spill and deadline the whole budget is one call, as in JAX."""
+            if self._deadline_at is None and not self.spill:
+                with obs_trace.span("superstep", tx=self._cur_tx, steps=max_steps):
+                    return run_chunk(sf, max_steps)
+            steps_done = 0
+            sec_per_step = 0.0
+            q = max(1, self._chunk // 4)
+            while steps_done < max_steps:
+                n = min(self._chunk, max_steps - steps_done)
+                if q < n < self._chunk:
+                    n = q
+                if (self._deadline_at is not None and sec_per_step
+                        and n == self._chunk):
+                    remaining = self._deadline_at - time.monotonic()
+                    if remaining < sec_per_step * n:
+                        n = q
+                with obs_trace.timer("superstep", tx=self._cur_tx, steps=n,
+                                     done=steps_done) as sp:
+                    sf = run_chunk(sf, n)
+                sec_per_step = max(sec_per_step, sp.elapsed / n)
+                obs_metrics.REGISTRY.counter("engine_supersteps_total").inc(n)
+                steps_done += n
+                act_h, freq_h, run_h = seam(sf)
+                if self.spill:
+                    sf, moved = rebalance_parked(sf)
+                    self._rebalanced += moved
+                self.plugin_loader.fire("on_chunk", sf, steps_done)
+                if not bool(run_h.any()):
+                    break
+                if (self._deadline_at is not None
+                        and time.monotonic() >= self._deadline_at):
+                    self.timed_out = True
+                    break
+            if self.spill:
+                # drain: lanes still parked at budget end re-raise their
+                # forks for bounded extra chunks
+                act_h, freq_h, _ = seam(sf)
+                parked = freq_h & act_h
+                for _ in range(4):
+                    if not parked.any():
+                        break
+                    if self.timed_out or (self._deadline_at is not None
+                                          and time.monotonic() >= self._deadline_at):
+                        break
+                    sf, moved = rebalance_parked(sf)
+                    self._rebalanced += moved
+                    with obs_trace.span("superstep", tx=self._cur_tx,
+                                        steps=self._chunk, drain=True):
+                        sf = run_chunk(sf, self._chunk)
+                    act_h, freq_h, _ = seam(sf)
+                    parked = freq_h & act_h
+                self._parked_end += int(parked.sum())
+            return sf
+
+        def run_one_tx(sf, is_last: bool):
+            self.plugin_loader.fire("on_tx_start", self._cur_tx, sf)
+            sf = explore(sf)
+            with obs_trace.span("harvest", tx=self._cur_tx):
+                host = sf.to_numpy()
+                trap_counts = _count_traps(host.base.err_code)
+                ctx = AnalysisContext(
+                    sf=host, corpus=corpus_host, limits=limits,
+                    contract_names=names, solver_iters=solver_iters,
+                    solver_timeout=solver_timeout,
+                    trap_counts=trap_counts, timed_out=self.timed_out,
+                )
+                self.tx_contexts.append(ctx)
+            self.plugin_loader.fire("on_tx_end", ctx)
+            if not is_last:
+                sf = between_txs(sf, first_message_tx=0)
+            return sf
+
+        self._cur_tx = 0
+        self.plugin_loader.fire("initialize", self)
+        for t in range(transaction_count):
+            if self.timed_out:
+                break
+            if not ci.host_bool(torch.any(sf.base.active)):
+                break  # nothing survived: no state left to extend
+            sf = run_one_tx(sf, is_last=(t == transaction_count - 1))
+            self._cur_tx += 1
+        self.sf = sf
+        self.ctx = self.tx_contexts[-1]
+        self.visited = self._visited.cpu().numpy()
+        self.plugin_loader.fire("on_run_end", self)
+
+    def instruction_coverage(self) -> Dict[str, float]:
+        """Per-contract % of real instructions reached."""
+        out = {}
+        names = self.tx_contexts[-1].contract_names if self.tx_contexts else []
+        for i, img in enumerate(self.images):
+            starts = img.is_code
+            n = int(starts.sum())
+            hit = int((self.visited[i] & starts).sum())
+            name = names[i] if i < len(names) else f"contract_{i}"
+            out[name] = round(100.0 * hit / n, 1) if n else 100.0
+        return out
+
+    @property
+    def coverage(self) -> dict:
+        cov = coverage_summary(self.tx_contexts)
+        cov["instruction_coverage_pct"] = self.instruction_coverage()
+        if self.spill:
+            cov["dropped_forks"] += self._parked_end
+            cov["rebalanced_lanes"] = self._rebalanced
+        return cov

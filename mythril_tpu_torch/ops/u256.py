@@ -1,0 +1,487 @@
+"""256-bit word arithmetic as 8 x 32-bit limb vectors (little-endian limbs).
+
+PyTorch counterpart of the JAX package's ``ops/u256.py``. Every EVM word
+is a ``[..., 8]`` tensor, limb 0 the least significant 32 bits.
+
+Carrier dtype: PyTorch's ``uint32`` has no add, shift, compare, ``where``
+or ``gather`` on the CPU, so limbs ride in **int64** holding 0..2^32-1.
+Every operation that can leave that range (add carries, borrows, products,
+``~``) masks back with ``& 0xFFFFFFFF``; products are formed from 16-bit
+halves so no intermediate exceeds 2^63. ``to_numpy`` seams convert to
+``uint32`` (see ``core/frontier.py``).
+
+Conventions (EVM): DIV/MOD by zero -> 0; SDIV overflow (-2^255 / -1)
+-> -2^255; shifts with amount >= 256 -> 0 (SAR -> sign fill).
+
+``divmod_u`` goes through the hand-written CUDA kernel K1 on a CUDA
+tensor (``kernels/csrc/u256_divmod.cu``) and through its plain version,
+:func:`divmod_u_plain`, on a CPU tensor.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+NLIMBS = 8
+LIMB_BITS = 32
+WORD_BITS = 256
+MASK32 = 0xFFFFFFFF
+CARRIER = torch.int64
+
+# ---------------------------------------------------------------------------
+# Host-side conversions (numpy)
+# ---------------------------------------------------------------------------
+
+
+def from_int(x: int) -> np.ndarray:
+    """Python int (mod 2^256) -> u32[8] limbs, little-endian."""
+    x &= (1 << 256) - 1
+    return np.array([(x >> (32 * i)) & 0xFFFFFFFF for i in range(NLIMBS)], dtype=np.uint32)
+
+
+def from_ints(xs) -> np.ndarray:
+    return np.stack([from_int(int(x)) for x in xs], axis=0)
+
+
+def to_int(limbs) -> int:
+    """u32[8] limbs -> Python int."""
+    if isinstance(limbs, torch.Tensor):
+        limbs = limbs.cpu().numpy()
+    limbs = np.asarray(limbs, dtype=np.uint64)
+    out = 0
+    for i in range(NLIMBS):
+        out |= int(limbs[..., i]) << (32 * i)
+    return out
+
+
+def to_ints(arr) -> list:
+    if isinstance(arr, torch.Tensor):
+        arr = arr.cpu().numpy()
+    arr = np.asarray(arr)
+    flat = arr.reshape(-1, NLIMBS)
+    return [to_int(row) for row in flat]
+
+
+def from_bytes(b: bytes) -> np.ndarray:
+    """Big-endian byte string (<=32 bytes) -> u32[8]."""
+    return from_int(int.from_bytes(b, "big"))
+
+
+def to_bytes(limbs) -> bytes:
+    return to_int(limbs).to_bytes(32, "big")
+
+
+def word(value: int, device=None) -> torch.Tensor:
+    """A constant word as an int64 carrier tensor [8]."""
+    return torch.as_tensor(from_int(value).astype(np.int64), device=device)
+
+
+# ---------------------------------------------------------------------------
+# Constructors
+# ---------------------------------------------------------------------------
+
+
+def from_u64_scalar(x: torch.Tensor) -> torch.Tensor:
+    """Non-negative int64 scalar per lane -> u256 limbs."""
+    x = x.to(torch.int64)
+    lo = x & MASK32
+    hi = (x >> 32) & MASK32
+    rest = torch.zeros(x.shape + (NLIMBS - 2,), dtype=CARRIER, device=x.device)
+    return torch.cat([lo[..., None], hi[..., None], rest], dim=-1)
+
+
+def to_u64_saturating(a: torch.Tensor) -> torch.Tensor:
+    """Low 64 bits, saturating to 2^64-1 if any higher limb is set,
+    returned as the int64 with the same bit pattern (the JAX code casts
+    this u64 to i64 at every use, so 2^64-1 reads as -1 there too)."""
+    hi = a[..., 1]
+    hi = torch.where(hi >= (1 << 31), hi - (1 << 32), hi)
+    lo = hi * (1 << 32) + a[..., 0]
+    overflow = torch.any(a[..., 2:] != 0, dim=-1)
+    return torch.where(overflow, torch.full_like(lo, -1), lo)
+
+
+def to_u32_saturating(a: torch.Tensor) -> torch.Tensor:
+    """Low 32 bits, saturating if any higher limb set (for pc/offsets)."""
+    overflow = torch.any(a[..., 1:] != 0, dim=-1)
+    return torch.where(overflow, torch.full_like(a[..., 0], MASK32), a[..., 0])
+
+
+# ---------------------------------------------------------------------------
+# Bitwise
+# ---------------------------------------------------------------------------
+
+
+def bit_and(a, b):
+    return a & b
+
+
+def bit_or(a, b):
+    return a | b
+
+
+def bit_xor(a, b):
+    return a ^ b
+
+
+def bit_not(a):
+    return a ^ MASK32
+
+
+# ---------------------------------------------------------------------------
+# Predicates
+# ---------------------------------------------------------------------------
+
+
+def is_zero(a) -> torch.Tensor:
+    return torch.all(a == 0, dim=-1)
+
+
+def eq(a, b) -> torch.Tensor:
+    return torch.all(a == b, dim=-1)
+
+
+def msb(a) -> torch.Tensor:
+    """Sign bit (bit 255) as bool."""
+    return (a[..., NLIMBS - 1] >> 31) != 0
+
+
+is_neg = msb
+
+
+def lt(a, b) -> torch.Tensor:
+    """Unsigned a < b: decided by the most significant differing limb."""
+    a, b = torch.broadcast_tensors(a, b)
+    neq = a != b
+    a_lt = a < b
+    decided = torch.zeros(a.shape[:-1], dtype=torch.bool, device=a.device)
+    result = torch.zeros(a.shape[:-1], dtype=torch.bool, device=a.device)
+    for i in range(NLIMBS - 1, -1, -1):
+        take = (~decided) & neq[..., i]
+        result = torch.where(take, a_lt[..., i], result)
+        decided = decided | neq[..., i]
+    return result
+
+
+def gt(a, b):
+    return lt(b, a)
+
+
+def gte(a, b):
+    return ~lt(a, b)
+
+
+def lte(a, b):
+    return ~lt(b, a)
+
+
+def slt(a, b):
+    """Signed a < b (two's complement)."""
+    sa, sb = msb(a), msb(b)
+    return torch.where(sa != sb, sa, lt(a, b))
+
+
+def sgt(a, b):
+    return slt(b, a)
+
+
+def bool_to_word(p) -> torch.Tensor:
+    """bool[...] -> u256 0/1."""
+    out = torch.zeros(p.shape + (NLIMBS,), dtype=CARRIER, device=p.device)
+    out[..., 0] = p.to(CARRIER)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Add / Sub / Neg
+# ---------------------------------------------------------------------------
+
+
+def add(a, b):
+    return add_carry(a, b)[0]
+
+
+def add_carry(a, b):
+    """(a + b mod 2^256, carry_out bool)."""
+    a, b = torch.broadcast_tensors(a, b)
+    out = []
+    c = torch.zeros(a.shape[:-1], dtype=CARRIER, device=a.device)
+    for i in range(NLIMBS):
+        s = a[..., i] + b[..., i] + c
+        out.append(s & MASK32)
+        c = s >> 32
+    return torch.stack(out, dim=-1), c != 0
+
+
+def sub(a, b):
+    return sub_borrow(a, b)[0]
+
+
+def sub_borrow(a, b):
+    """(a - b mod 2^256, borrow_out bool). borrow_out == (a < b)."""
+    a, b = torch.broadcast_tensors(a, b)
+    out = []
+    borrow = torch.zeros(a.shape[:-1], dtype=CARRIER, device=a.device)
+    for i in range(NLIMBS):
+        d = a[..., i] - b[..., i] - borrow
+        out.append(d & MASK32)
+        borrow = (d < 0).to(CARRIER)
+    return torch.stack(out, dim=-1), borrow != 0
+
+
+def neg(a):
+    """Two's complement negation."""
+    one = torch.zeros_like(a)
+    one[..., 0] = 1
+    return add(bit_not(a), one)
+
+
+def abs_signed(a):
+    """(|a| as unsigned, was_negative)."""
+    n = msb(a)
+    return torch.where(n[..., None], neg(a), a), n
+
+
+# ---------------------------------------------------------------------------
+# Mul (schoolbook over 16-bit halves: every partial product < 2^32, every
+# column sum < 2^37, so int64 never overflows)
+# ---------------------------------------------------------------------------
+
+
+def _halves(a):
+    return torch.stack([a & 0xFFFF, a >> 16], dim=-1).reshape(a.shape[:-1] + (2 * NLIMBS,))
+
+
+def _product_halves(a, b, n_out: int):
+    a16, b16 = _halves(a), _halves(b)
+    cols = torch.zeros(a.shape[:-1] + (n_out + 16,), dtype=CARRIER, device=a.device)
+    for i in range(16):
+        if i >= n_out:
+            break
+        cols[..., i:i + 16] += a16[..., i:i + 1] * b16
+    out = []
+    carry = torch.zeros(a.shape[:-1], dtype=CARRIER, device=a.device)
+    for k in range(n_out):
+        t = cols[..., k] + carry
+        out.append(t & 0xFFFF)
+        carry = t >> 16
+    h = torch.stack(out, dim=-1)
+    return h[..., 0::2] | (h[..., 1::2] << 16)
+
+
+def mul(a, b):
+    """Low 256 bits of a*b."""
+    a, b = torch.broadcast_tensors(a, b)
+    return _product_halves(a, b, 16)
+
+
+def mul_wide(a, b):
+    """Full 512-bit product as [..., 16] limbs."""
+    a, b = torch.broadcast_tensors(a, b)
+    return _product_halves(a, b, 32)
+
+
+# ---------------------------------------------------------------------------
+# Division (K1) and modulo
+# ---------------------------------------------------------------------------
+
+
+def _shift_in(r, bit):
+    """(r << 1 | bit) mod 2^256, and the bit shifted out of 2^256."""
+    overflow = (r[..., NLIMBS - 1] >> 31) != 0
+    hi_bits = r >> 31
+    r2 = (r << 1) & MASK32
+    r2 = torch.cat([r2[..., :1] | bit[..., None], r2[..., 1:] | hi_bits[..., :-1]], dim=-1)
+    return r2, overflow
+
+
+def divmod_u_plain(a, b):
+    """Plain version of K1: 256-step shift-subtract long division;
+    division by zero -> (0, 0). The shifted-out bit is tracked: when set,
+    the true remainder exceeds 2^256 > b, so the subtraction must occur."""
+    a, b = torch.broadcast_tensors(a, b)
+    q = torch.zeros_like(a)
+    r = torch.zeros_like(a)
+    for k in range(256):
+        i = 255 - k
+        limb, shift = i // LIMB_BITS, i % LIMB_BITS
+        bit = (a[..., limb] >> shift) & 1
+        r2, overflow = _shift_in(r, bit)
+        ge = gte(r2, b) | overflow
+        r = torch.where(ge[..., None], sub(r2, b), r2)
+        q[..., limb] |= ge.to(CARRIER) << shift
+    bz = is_zero(b)[..., None]
+    return torch.where(bz, 0, q), torch.where(bz, 0, r)
+
+
+def divmod_u(a, b):
+    """Unsigned (a // b, a % b); division by zero -> (0, 0) per EVM.
+    A CUDA tensor goes to kernel K1, a CPU tensor to its plain version."""
+    if a.is_cuda or b.is_cuda:
+        from ..kernels import divmod_u256
+
+        a, b = torch.broadcast_tensors(a, b)
+        return divmod_u256(a.contiguous(), b.contiguous())
+    return divmod_u_plain(a, b)
+
+
+def div(a, b):
+    return divmod_u(a, b)[0]
+
+
+def mod(a, b):
+    return divmod_u(a, b)[1]
+
+
+def sdiv(a, b):
+    aa, na = abs_signed(a)
+    ab, nb = abs_signed(b)
+    q = div(aa, ab)
+    flip = na != nb
+    q = torch.where(flip[..., None], neg(q), q)
+    # EVM: -2^255 / -1 wraps to -2^255 — this falls out of two's complement
+    return torch.where(is_zero(b)[..., None], 0, q)
+
+
+def smod(a, b):
+    aa, na = abs_signed(a)
+    ab, _ = abs_signed(b)
+    r = mod(aa, ab)
+    r = torch.where(na[..., None], neg(r), r)
+    return torch.where(is_zero(b)[..., None], 0, r)
+
+
+def _mod_wide(wide, m):
+    """([..., n] limb value) mod (u256 m); m==0 -> 0. Bitwise long division."""
+    nbits = wide.shape[-1] * LIMB_BITS
+    r = torch.zeros(wide.shape[:-1] + (NLIMBS,), dtype=CARRIER, device=wide.device)
+    m = m.expand_as(r)
+    for k in range(nbits):
+        i = nbits - 1 - k
+        limb, shift = i // LIMB_BITS, i % LIMB_BITS
+        bit = (wide[..., limb] >> shift) & 1
+        r2, overflow = _shift_in(r, bit)
+        ge = gte(r2, m) | overflow
+        r = torch.where(ge[..., None], sub(r2, m), r2)
+    return torch.where(is_zero(m)[..., None], 0, r)
+
+
+def addmod(a, b, m):
+    """(a + b) mod m over a 9-limb (288-bit) intermediate."""
+    s, carry = add_carry(a, b)
+    wide = torch.cat([s, carry.to(CARRIER)[..., None]], dim=-1)
+    return _mod_wide(wide, m)
+
+
+def mulmod(a, b, m):
+    return _mod_wide(mul_wide(a, b), m)
+
+
+# ---------------------------------------------------------------------------
+# Exp / SignExtend / Byte / Shifts
+# ---------------------------------------------------------------------------
+
+
+def exp(base, e):
+    """base ** e mod 2^256, square-and-multiply (MSB-first)."""
+    base, e = torch.broadcast_tensors(base, e)
+    acc = torch.zeros_like(base)
+    acc[..., 0] = 1
+    for k in range(256):
+        i = 255 - k
+        limb, shift = i // LIMB_BITS, i % LIMB_BITS
+        bit = ((e[..., limb] >> shift) & 1) != 0
+        acc = mul(acc, acc)
+        acc = torch.where(bit[..., None], mul(acc, base), acc)
+    return acc
+
+
+def _take_limb(x, idx):
+    """x[..., idx[...]] for an int64 per-lane limb index."""
+    return torch.gather(x, -1, idx[..., None])[..., 0]
+
+
+def signextend(k, x):
+    """EVM SIGNEXTEND: extend sign from byte k (0 = least significant byte).
+    If k >= 31, x is unchanged."""
+    k32 = to_u32_saturating(k)
+    t = 8 * k32 + 7
+    bit_index = torch.clamp(t, 0, 255)
+    limb = bit_index // LIMB_BITS
+    shift = bit_index % LIMB_BITS
+    sign = ((_take_limb(x, limb) >> shift) & 1) != 0
+    limb_ids = torch.arange(NLIMBS, device=x.device)
+    bits_into_limb = bit_index[..., None] - limb_ids * LIMB_BITS
+    keep_all = bits_into_limb >= (LIMB_BITS - 1)
+    keep_none = bits_into_limb < 0
+    partial_shift = torch.clamp(bits_into_limb + 1, 0, LIMB_BITS - 1)
+    partial_mask = (1 << partial_shift) - 1
+    keep_mask = torch.where(keep_all, MASK32, torch.where(keep_none, 0, partial_mask))
+    ext = torch.where(sign[..., None], keep_mask ^ MASK32, 0)
+    res = (x & keep_mask) | ext
+    noop = k32 >= 31
+    return torch.where(noop[..., None], x, res)
+
+
+def byte_op(i, x):
+    """EVM BYTE: i-th byte of x counting from the most significant; >=32 -> 0."""
+    i32 = to_u32_saturating(i)
+    oob = i32 >= 32
+    j = torch.clamp(31 - i32, 0, 31)
+    limb = j // 4
+    shift = (j % 4) * 8
+    b = (_take_limb(x, limb) >> shift) & 0xFF
+    b = torch.where(oob, 0, b)
+    out = torch.zeros_like(x)
+    out[..., 0] = b
+    return out
+
+
+def _shift_amount(s):
+    """(amount >= 256, amount clipped to [0, 255]) of a u256 shift word."""
+    big = torch.any(s[..., 1:] != 0, dim=-1) | (s[..., 0] >= 256)
+    sh = torch.where(big, 255, s[..., 0])
+    return big, sh
+
+
+def _shift_limbs(a, ls, left: bool):
+    ids = torch.arange(NLIMBS, device=a.device)
+    idx = ids - ls[..., None] if left else ids + ls[..., None]
+    valid = (idx >= 0) & (idx < NLIMBS)
+    gathered = torch.gather(a, -1, torch.clamp(idx, 0, NLIMBS - 1))
+    return torch.where(valid, gathered, 0)
+
+
+def shl(s, a):
+    """a << s (EVM operand order: shift amount first)."""
+    big, sh = _shift_amount(s)
+    ls, bs = sh // LIMB_BITS, (sh % LIMB_BITS)[..., None]
+    moved = _shift_limbs(a, ls, left=True)
+    lo = (moved << bs) & MASK32
+    carry = torch.where(bs == 0, 0, moved >> ((32 - bs) % 32))
+    out = torch.cat([lo[..., :1], lo[..., 1:] | carry[..., :-1]], dim=-1)
+    return torch.where(big[..., None], 0, out)
+
+
+def shr(s, a):
+    """Logical a >> s."""
+    big, sh = _shift_amount(s)
+    ls, bs = sh // LIMB_BITS, (sh % LIMB_BITS)[..., None]
+    moved = _shift_limbs(a, ls, left=False)
+    hi = moved >> bs
+    carry = torch.where(bs == 0, 0, (moved << ((32 - bs) % 32)) & MASK32)
+    out = torch.cat([hi[..., :-1] | carry[..., 1:], hi[..., -1:]], dim=-1)
+    return torch.where(big[..., None], 0, out)
+
+
+def sar(s, a):
+    """Arithmetic a >> s."""
+    neg_in = msb(a)
+    logical = shr(s, a)
+    big, sh = _shift_amount(s)
+    all_ones = torch.full_like(a, MASK32)
+    fill = shl(from_u64_scalar(256 - sh), all_ones)
+    res = torch.where(neg_in[..., None], logical | fill, logical)
+    res_big = torch.where(neg_in[..., None], all_ones, 0)
+    return torch.where(big[..., None], res_big, res)

@@ -1,0 +1,117 @@
+"""The PyTorch package stands alone: no module of ``mythril_tpu_torch``
+(and not ``chip_smoke.py``) imports JAX or the JAX package, an analyze
+run loads neither, and the smoke script's golden fixtures are the
+CALL-free fixtures of ``tests/test_goldens.py``."""
+
+import ast
+import importlib.util
+import os
+import subprocess
+import sys
+
+import pytest
+
+import torch_port_child
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.join(ROOT, "mythril_tpu_torch")
+FORBIDDEN = ("jax", "jaxlib", "flax", "mythril_tpu")
+
+
+def _sources():
+    out = [os.path.join(ROOT, "chip_smoke.py")]
+    for d, _, files in os.walk(PKG):
+        out += [os.path.join(d, f) for f in files if f.endswith(".py")]
+    return sorted(out)
+
+
+def _imported_roots(path):
+    tree = ast.parse(open(path).read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield a.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module.split(".")[0]
+
+
+@pytest.mark.parametrize("path", _sources(), ids=lambda p: os.path.relpath(p, ROOT))
+def test_no_jax_or_jax_package_import(path):
+    bad = [m for m in _imported_roots(path) if m in FORBIDDEN]
+    assert not bad, f"{os.path.relpath(path, ROOT)} imports {bad}"
+
+
+def test_cpu_analyze_loads_neither_jax_nor_the_jax_package():
+    script = (
+        "import sys\n"
+        "import mythril_tpu_torch\n"
+        "from mythril_tpu_torch.analysis import SymExecWrapper, fire_lasers\n"
+        "from mythril_tpu_torch.config import TEST_LIMITS\n"
+        "from mythril_tpu_torch.disassembler.asm import assemble\n"
+        "code = assemble(4, 'CALLDATALOAD', 'SELFDESTRUCT')\n"
+        "sym = SymExecWrapper([code], limits=TEST_LIMITS, lanes_per_contract=16,\n"
+        "                     max_steps=64, device='cpu')\n"
+        "assert [i.swc_id for i in fire_lasers(sym).issues] == ['106']\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'mythril_tpu'))\n"
+        "print('LOADED', bad)\n"
+        "sys.exit(1 if bad else 0)\n")
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    r = subprocess.run([sys.executable, "-c", script], cwd=ROOT, env=env,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stdout + r.stderr
+
+
+def test_chip_smoke_fixtures_equal_the_goldens():
+    from test_goldens import _fixtures
+    from mythril_tpu_torch.support import frame_opcodes_in
+
+    spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    want = {n: code for n, (code, _) in _fixtures().items() if not frame_opcodes_in(code)}
+    assert smoke.golden_fixtures() == want
+
+
+def _compute(path):
+    """Child process: the device default and the no-fallback rule."""
+    import torch
+    from mythril_tpu_torch import kernels
+    from mythril_tpu_torch.device import resolve_device
+
+    res = {"cuda": torch.cuda.is_available(), "cpu": resolve_device("cpu").type}
+    try:
+        res["default"] = resolve_device().type
+    except RuntimeError as e:
+        res["default"] = str(e)
+    cpu = torch.zeros((4, 8), dtype=torch.int64)
+    try:
+        kernels.divmod_u256(cpu, cpu)
+        res["cpu_tensor_to_kernel"] = None
+    except ValueError as e:
+        res["cpu_tensor_to_kernel"] = str(e)
+    torch_port_child.dump(res, path)
+
+
+@pytest.fixture(scope="module")
+def res(tmp_path_factory):
+    return torch_port_child.run("test_torch_isolation", "_compute", tmp_path_factory)
+
+
+def test_entry_points_default_to_the_card(res):
+    assert res["cpu"] == "cpu"
+    if res["cuda"]:
+        assert res["default"] == "cuda"
+    else:
+        assert "no CUDA device" in res["default"]
+
+
+def test_cuda_tensor_never_falls_back_to_plain(res):
+    assert res["cpu_tensor_to_kernel"] is not None
+    assert "CUDA tensor" in res["cpu_tensor_to_kernel"]
+
+
+def test_collecting_the_port_tests_loads_no_torch():
+    # the port's tests run PyTorch only in child processes
+    # (torch_port_child), so the test worker itself stays torch-free
+    assert "torch" not in sys.modules
