@@ -7,23 +7,35 @@ Phases, each fatal on failure:
 
 1. device: the card's name and power limit (``nvidia-smi``); exits
    non-zero without CUDA;
-2. build: compiles the CUDA kernels (K1-K3) from ``mythril_tpu_torch/
+2. build: compiles the CUDA kernels (K1-K5) from ``mythril_tpu_torch/
    kernels/csrc`` with nvcc, in parallel;
-3. kernels: each kernel against its plain PyTorch version on the card, at
-   the main path's width (P = 2048 lanes), seeded random inputs plus edge
-   cases; bit-for-bit equality is required. Times each kernel, its plain
-   version and the bound the card's rates put on the same work;
-4. goldens: the 14 CALL-free golden fixtures at the goldens' settings
-   (test limits, 16 lanes, 192 steps) on the card, issue for issue
-   against ``tests/fixtures/goldens``;
-5. analyze: ``analyze -o json`` at the CLI defaults (64 lanes, 512 steps,
-   -t 2) on the realworld ERC-20 and ERC-721 runtimes — the main path —
-   against ``tests/fixtures/torch_port/*_default.json``; kernel launch
-   counts are zeroed just before and read just after;
-6. batch: 32 contracts (16 x ERC-20, 16 x ERC-721) x 64 lanes = 2048
+3. kernels: each kernel against its plain PyTorch version on the card
+   (K1-K4 at the main path's width, P = 2048 lanes; K5 on 64 lanes of
+   edge and random operands), seeded random inputs plus edge cases;
+   bit-for-bit equality is required, and K4/K5 also against hashlib /
+   Python's ``pow``. Times each kernel, its plain version and the bound
+   the card's rates put on the same work;
+4. goldens: the 20 golden fixtures at the goldens' settings (test
+   limits, 16 lanes, 192 steps), the real-world batch and BASELINE
+   config 4 at their tests' limits, issue for issue against
+   ``tests/fixtures/goldens``;
+5. analyze: ``analyze -o json`` at the CLI defaults (64 lanes, 512
+   steps, -t 2) — the main path — against the JAX reports pinned in
+   ``tests/fixtures/torch_port/*_default.json``: (a) the realworld ERC-20
+   and ERC-721 runtimes; (b) the 2-of-3 multisig (CALL) and the
+   precompile fixture with ``--creation-code`` (SHA-256 and MODEXP in its
+   constructor: K4 and K5 must launch there). Launch counts are zeroed
+   just before each part and read just after;
+6. frames at full width through ``SymExecWrapper``: BASELINE config 4
+   (caller -> router -> vault, creation tx + 2 message txs, default
+   limits, 64 lanes per contract, 512 steps) and the 4-contract
+   real-world batch (EIP-1167 proxy, ERC-20, ERC-721, multisig; -t 2),
+   against pinned JAX reports; wall time, supersteps, host syncs, frames
+   pushed and popped, K4/K5 launches;
+7. batch: 32 contracts (16 x ERC-20, 16 x ERC-721) x 64 lanes = 2048
    lanes, default limits, 512 steps, -t 2, then the detection modules;
    wall time, lane-steps/s, contracts/s, host syncs, peak memory;
-7. profile (measurement only, after the counted runs): the engine's
+8. profile (measurement only, after the counted runs): the engine's
    loop stages timed between synchronizations, and a torch.profiler
    window (16 supersteps of the batch) for the device's busy share and
    its top kernels.
@@ -34,6 +46,9 @@ Prints a ``kernels`` JSON line, the card line, and last
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
+import io
 import json
 import os
 import subprocess
@@ -67,8 +82,8 @@ def card_line() -> str:
 
 
 # ---------------------------------------------------------------------------
-# fixtures (the CALL-free subset of tests/test_goldens.py's fixtures, built
-# with this package's assembler)
+# fixtures (tests/test_goldens.py's fixtures, built with this package's
+# assembler; the other fixtures are read from tests/fixtures)
 # ---------------------------------------------------------------------------
 
 
@@ -107,6 +122,23 @@ def golden_fixtures():
     add("swc124_fixed_write", 36, "CALLDATALOAD", 5, "SSTORE", "STOP")
     add("swc111_origin_read", "ORIGIN", 0, "SSTORE", "STOP")
     add("clean_store", 4, "CALLDATALOAD", 1, "SSTORE", "STOP")
+    add("swc105_drain",
+        0, 0, 0, 0, 36, "CALLDATALOAD", 4, "CALLDATALOAD", ("push2", 0xFFFF), "CALL",
+        "POP", "STOP")
+    add("swc104_checked",
+        0, 0, 0, 0, 0, 4, "CALLDATALOAD", ("push2", 0xFFFF), "CALL",
+        ("ref", "ok"), "JUMPI", 0, 0, "REVERT", ("label", "ok"), "STOP")
+    add("swc112_deleg_user",
+        0, 0, 0, 0, 4, "CALLDATALOAD", ("push2", 0xFFFF), "DELEGATECALL", "POP", "STOP")
+    add("swc116_timestamp",
+        "TIMESTAMP", ("push4", 0x5F5E1000), "GT", ("ref", "w"), "JUMPI", "STOP",
+        ("label", "w"), 0, 0, 0, 0, 1, "CALLER", ("push2", 0xFFFF), "CALL", "POP", "STOP")
+    add("swc107_sstore_after_call",
+        0, 0, 0, 0, 0, 4, "CALLDATALOAD", ("push2", 0xFFFF), "CALL",
+        "POP", 1, 0, "SSTORE", "STOP")
+    add("swc113_multi_send",
+        0, 0, 0, 0, 1, 4, "CALLDATALOAD", ("push2", 0xFFFF), "CALL", "POP",
+        0, 0, 0, 0, 1, 36, "CALLDATALOAD", ("push2", 0xFFFF), "CALL", "POP", "STOP")
     return fx
 
 
@@ -120,9 +152,55 @@ def sorted_keys(issues):
                   key=lambda d: (d["swc-id"], d["address"], d["title"]))
 
 
-def realworld(name: str) -> bytes:
-    with open(os.path.join(ROOT, "tests", "fixtures", "realworld", f"{name}.bin-runtime")) as fh:
+def fixture_path(*parts) -> str:
+    return os.path.join(ROOT, "tests", "fixtures", *parts)
+
+
+def read_hex(path: str) -> bytes:
+    with open(path) as fh:
         return bytes.fromhex(fh.read().strip().removeprefix("0x"))
+
+
+def realworld(name: str) -> bytes:
+    return read_hex(fixture_path("realworld", f"{name}.bin-runtime"))
+
+
+def load_json(*parts):
+    with open(fixture_path(*parts)) as fh:
+        return json.load(fh)
+
+
+# the real-world batch and BASELINE config 4 (tests/realworld_fixture.py,
+# tests/config4_fixture.py), in corpus order; test_torch_isolation holds
+# them equal to tests/torch_port_fixtures.py's, whose reports are pinned
+REALWORLD = [("Eip1167Proxy", "eip1167proxy"), ("Erc20Full", "erc20full"),
+             ("Erc721", "erc721"), ("Multisig2of3", "multisig2of3")]
+CONFIG4 = ["Caller", "Router", "Vault"]
+COVERAGE_KEYS = ("lanes", "surviving_paths", "dropped_forks", "killed_infeasible",
+                 "lanes_errored", "instruction_coverage_pct")
+
+
+def realworld_system():
+    return [(n, realworld(f)) for n, f in REALWORLD]
+
+
+def config4_system():
+    return [(n, read_hex(fixture_path("config4", f"{n.lower()}.bin")),
+             read_hex(fixture_path("config4", f"{n.lower()}.bin-runtime"))) for n in CONFIG4]
+
+
+def by_contract(issues):
+    return sorted((issue_key(d) for d in issues),
+                  key=lambda d: (d["contract"], d["swc-id"], d["address"], d["title"]))
+
+
+def check_report(what, issues, coverage, want):
+    """Issues (any order) and the coverage keys against a pinned report."""
+    if by_contract(issues) != by_contract(want["issues"]):
+        fail(f"{what}: issues {by_contract(issues)} != {by_contract(want['issues'])}")
+    for k in COVERAGE_KEYS:
+        if coverage[k] != want["coverage"][k]:
+            fail(f"{what}: coverage {k} {coverage[k]} != {want['coverage'][k]}")
 
 
 # ---------------------------------------------------------------------------
@@ -307,6 +385,93 @@ def check_k3(dev, rng):
                 plain_ms=plain_ms, nbytes=nbytes, ops=0)
 
 
+def check_k4(dev, rng):
+    import hashlib
+
+    from mythril_tpu_torch import kernels
+    from mythril_tpu_torch.ops import sha256, u256
+
+    N = 448  # the precompile input window (PRE_IN_CAP)
+    data = rng.integers(0, 256, (P_MAIN, N), dtype=np.uint8)
+    lens = rng.integers(0, N + 1, P_MAIN).astype(np.int32)
+    edge = [0, 1, 55, 56, 63, 64, 119, 120, 448]
+    lens[:len(edge)] = edge
+    for i, n in enumerate(lens):
+        data[i, n:] = 0
+    import torch
+
+    d = torch.as_tensor(data, device=dev)
+    n = torch.as_tensor(lens, device=dev)
+    out = kernels.sha256(d, n)
+    plain = sha256.sha256_plain(d, n)
+    err = max_abs_err(out, plain)
+    got = out.cpu().numpy()
+    for i in range(P_MAIN):
+        want = int.from_bytes(hashlib.sha256(bytes(data[i, :lens[i]])).digest(), "big")
+        if u256.to_int(got[i]) != want:
+            fail(f"K4 lane {i} (len {lens[i]}) disagrees with hashlib")
+    ms = time_ms(lambda: kernels.sha256(d, n), 50)
+    plain_ms = time_ms(lambda: sha256.sha256_plain(d, n), 2)
+    blocks = int(np.sum((lens.astype(np.int64) + 9 + 63) // 64))
+    # each lane's own message bytes and its length in, its digest out
+    # (int64 carriers)
+    nbytes = int(np.sum(lens)) + P_MAIN * 4 + P_MAIN * 8 * 8
+    ops = blocks * 2400  # ~2,400 32-bit operations per 64-byte block
+    return dict(name="sha256", source="mythril_tpu_torch/kernels/csrc/sha256.cu",
+                replaces="mythril_tpu/ops/sha256.py:46", max_abs_err=err, ms=ms,
+                plain_ms=plain_ms, nbytes=nbytes, ops=ops)
+
+
+MODEXP_LANES = 64
+
+
+def modexp_cases(rng):
+    """(base, e, m) for K5: edge cases, then seeded random operands."""
+    M = (1 << 256) - 1
+    cases = [(3, 5, 0), (3, 0, 1), (0, 0, 1), (5, 0, 7), (0, 5, 7), (M, M, M),
+             (M, M, M - 1), (2, M, 1 << 255), (2, M, (1 << 255) + 1), (12345, M, 1),
+             (M, 2, 3), ((1 << 255) + 1, 3, (1 << 255) - 19), (2, 10, 1 << 200),
+             (9, M, 1 << 100)]
+    while len(cases) < MODEXP_LANES:
+        b, e, m = (int.from_bytes(rng.bytes(32), "big") >> int(rng.integers(0, 256))
+                   for _ in range(3))
+        cases.append((b, e, m))
+    return cases
+
+
+def modexp_ops(cases) -> int:
+    """32-bit operations K5 does for these operands: mu (258 shift-
+    compare-subtract steps over 9 limbs) plus, per product-reduce, ~190
+    multiply-adds (4 operations each) and ~50 limb shifts/subtractions."""
+    per_mulmod = 4 * (64 + 81 + 45) + 4 * 50
+    ops = 0
+    for _, e, m in cases:
+        if m:
+            ops += 258 * 27 + per_mulmod * (e.bit_length() + bin(e).count("1"))
+    return ops
+
+
+def check_k5(dev, rng):
+    from mythril_tpu_torch import kernels
+    from mythril_tpu_torch.ops import u256
+
+    cases = modexp_cases(rng)
+    b, e, m = (words_tensor([c[i] for c in cases], dev) for i in range(3))
+    out = kernels.modexp_u256(b, e, m)
+    plain = u256.modexp_plain(b, e, m)
+    err = max_abs_err(out, plain)
+    got = out.cpu().numpy()
+    for i, (x, y, z) in enumerate(cases):
+        if u256.to_int(got[i]) != (pow(x, y, z) if z else 0):
+            fail(f"K5 lane {i} disagrees with pow")
+    ms = time_ms(lambda: kernels.modexp_u256(b, e, m), 10)
+    plain_ms = time_ms(lambda: u256.modexp_plain(b, e, m), 1)
+    nbytes = 4 * MODEXP_LANES * 8 * 8
+    return dict(name="modexp_u256", source="mythril_tpu_torch/kernels/csrc/u256_modexp.cu",
+                replaces="mythril_tpu/ops/u256.py:408", max_abs_err=err, ms=ms,
+                plain_ms=plain_ms, nbytes=nbytes, ops=modexp_ops(cases))
+
+
 # ---------------------------------------------------------------------------
 # main
 # ---------------------------------------------------------------------------
@@ -334,7 +499,8 @@ def main() -> int:
 
     # phase 3: kernels against their plain versions
     rng = np.random.default_rng(20261017)
-    results = [check_k1(dev, rng), check_k2(dev, rng), check_k3(dev, rng)]
+    results = [check_k1(dev, rng), check_k2(dev, rng), check_k3(dev, rng),
+               check_k4(dev, rng), check_k5(dev, rng)]
     for r in results:
         if r["max_abs_err"] != 0:
             fail(f"{r['name']}: kernel disagrees with its plain version "
@@ -364,87 +530,172 @@ def main() -> int:
     return 0
 
 
-def run_paths(dev) -> dict:
-    import contextlib
-    import io
+def counted(run):
+    """Drive one path with every launch count zeroed just before it;
+    -> (its result, the counts read just after it)."""
+    import torch
+    from mythril_tpu_torch import kernels
 
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    out = run()
+    torch.cuda.synchronize()
+    return out, kernels.launch_counts()
+
+
+def run_cli(name: str, argv) -> None:
+    """``analyze ... -o json`` at the CLI defaults on the card, held to
+    the pinned JAX report ``tests/fixtures/torch_port/<name>_default.json``."""
+    from mythril_tpu_torch.core import interpreter as ci
+    from mythril_tpu_torch.interfaces.cli import main as cli_main
+    from mythril_tpu_torch.symbolic.engine import ENGINE_STATS
+
+    buf = io.StringIO()
+    t0 = time.monotonic()
+    syncs0 = ci.HOST_SYNCS["count"]
+    steps0 = ENGINE_STATS["supersteps"]
+    with contextlib.redirect_stdout(buf):
+        rc = cli_main(["analyze", *argv, "-o", "json"])
+    wall = time.monotonic() - t0
+    if rc != 0:
+        fail(f"analyze {name}: rc {rc}")
+    got = json.loads(buf.getvalue())
+    check_report(f"analyze {name}", got["issues"], got["coverage"],
+                 load_json("torch_port", f"{name}_default.json"))
+    n_syncs = ci.HOST_SYNCS["count"] - syncs0
+    n_steps = ENGINE_STATS["supersteps"] - steps0
+    print(f"[5] analyze {name}: {len(got['issues'])} issue(s), report equal; "
+          f"{wall:.2f} s wall, {n_steps} supersteps, {n_syncs} host syncs "
+          f"({n_syncs / max(1, n_steps):.2f} per superstep)", flush=True)
+
+
+def run_paths(dev) -> dict:
     import torch
     from mythril_tpu_torch import kernels
     from mythril_tpu_torch.analysis import SymExecWrapper, fire_lasers
     from mythril_tpu_torch.config import DEFAULT_LIMITS, TEST_LIMITS
     from mythril_tpu_torch.core import interpreter as ci
-    from mythril_tpu_torch.interfaces.cli import main as cli_main
-    from mythril_tpu_torch.symbolic.engine import ENGINE_STATS
+    from mythril_tpu_torch.symbolic.engine import ENGINE_STATS, FRAME_STATS
 
     # phase 4: goldens on the card
     t0 = time.monotonic()
-    for name, code in sorted(golden_fixtures().items()):
+    fixtures = golden_fixtures()
+    for name, code in sorted(fixtures.items()):
         sym = SymExecWrapper([code], limits=TEST_LIMITS, lanes_per_contract=16,
                              max_steps=192, device=dev)
         got = sorted_keys(i.as_dict() for i in fire_lasers(sym.ctx).issues)
-        with open(os.path.join(ROOT, "tests", "fixtures", "goldens", f"{name}.json")) as fh:
-            want = json.load(fh)
+        want = load_json("goldens", f"{name}.json")
         if got != want:
             fail(f"golden {name}: {got} != {want}")
-    print(f"[4] 14 goldens equal on the card ({time.monotonic() - t0:.1f} s)", flush=True)
+    system = realworld_system()
+    sym = SymExecWrapper([c for _, c in system], contract_names=[n for n, _ in system],
+                         limits=dataclasses.replace(TEST_LIMITS, max_accounts=8, call_depth=3,
+                                                    max_code=1024),
+                         lanes_per_contract=16, max_steps=192, transaction_count=2, device=dev)
+    report = fire_lasers(sym)
+    want = load_json("goldens", "realworld.json")
+    got = {"issues": by_contract(i.as_dict() for i in report.issues),
+           "coverage": {k: report.coverage.get(k) for k in want["coverage"]}}
+    if got != want:
+        fail(f"golden realworld: {got} != {want}")
+    system = config4_system()
+    sym = SymExecWrapper([r for _, _, r in system], contract_names=[n for n, _, _ in system],
+                         creation_bytecodes=[c for _, c, _ in system],
+                         limits=dataclasses.replace(TEST_LIMITS, call_depth=4, max_accounts=6),
+                         lanes_per_contract=16, max_steps=192, transaction_count=2, device=dev)
+    got = by_contract(i.as_dict() for i in fire_lasers(sym).issues)
+    if got != load_json("goldens", "config4.json"):
+        fail(f"golden config4: {got}")
+    print(f"[4] {len(fixtures)} goldens, realworld and config4 equal on the card "
+          f"({time.monotonic() - t0:.1f} s)", flush=True)
 
-    # phase 5: the main path, analyze at the CLI defaults
-    kernels.reset_launch_counts()
-    torch.cuda.synchronize()
-    for name in ("erc20full", "erc721"):
-        path = os.path.join(ROOT, "tests", "fixtures", "realworld", f"{name}.bin-runtime")
-        buf = io.StringIO()
-        t0 = time.monotonic()
+    # phase 5: the main path, analyze at the CLI defaults; (a) is the
+    # first slice's path, (b) this slice's (CALL, creation, precompiles).
+    # Each run has its own counts, zeroed just before it and read just after
+    creation, runtime = (fixture_path("torch_port", f"precompiles.{x}")
+                         for x in ("bin", "bin-runtime"))
+    parts = {
+        "a": [("erc20full", ["-f", fixture_path("realworld", "erc20full.bin-runtime")]),
+              ("erc721", ["-f", fixture_path("realworld", "erc721.bin-runtime")])],
+        "b": [("multisig2of3", ["-f", fixture_path("realworld", "multisig2of3.bin-runtime"),
+                                "-t", "2"]),
+              ("precompiles", ["-f", runtime, "--creation-code", creation])],
+    }
+    need = {"a": ("divmod_u256", "keccak256", "tape_append"),
+            "b": ("sha256", "modexp_u256", "tape_append")}
+    launches = dict.fromkeys(kernels.KERNELS, 0)
+    for part, runs in parts.items():
+        part_counts = dict.fromkeys(kernels.KERNELS, 0)
+        for name, argv in runs:
+            _, counts = counted(lambda: run_cli(name, argv))
+            print(f"[5{part}] {name} launches {counts}", flush=True)
+            if name == "precompiles":
+                for k in ("sha256", "modexp_u256"):
+                    if counts[k] <= 0:
+                        fail(f"analyze precompiles: kernel {k} was not launched")
+            for k, n in counts.items():
+                part_counts[k] += n
+                launches[k] += n
+        for k in need[part]:
+            if part_counts[k] <= 0:
+                fail(f"kernel {k} was not launched on the main path ({part})")
+
+    # phase 6: frames at full width (creation tx + call depth 3; the
+    # 4-contract real-world batch)
+    kw = dict(limits=DEFAULT_LIMITS, lanes_per_contract=64, max_steps=512,
+              transaction_count=2, device=dev)
+    runs6 = {
+        "config4": lambda: SymExecWrapper(
+            [r for _, _, r in config4_system()], contract_names=CONFIG4,
+            creation_bytecodes=[c for _, c, _ in config4_system()], **kw),
+        "realworld4": lambda: SymExecWrapper(
+            [c for _, c in realworld_system()], contract_names=[n for n, _ in REALWORLD], **kw),
+    }
+    for name, build in runs6.items():
+        FRAME_STATS.update(pushed=0, popped=0)
         syncs0 = ci.HOST_SYNCS["count"]
         steps0 = ENGINE_STATS["supersteps"]
-        with contextlib.redirect_stdout(buf):
-            rc = cli_main(["analyze", "-f", path, "-o", "json"])
+        t0 = time.monotonic()
+        sym, counts = counted(build)
+        t_engine = time.monotonic() - t0
+        report = fire_lasers(sym)
         wall = time.monotonic() - t0
-        if rc != 0:
-            fail(f"analyze {name}: rc {rc}")
-        got = json.loads(buf.getvalue())
-        with open(os.path.join(ROOT, "tests", "fixtures", "torch_port",
-                               f"{name}_default.json")) as fh:
-            want = json.load(fh)
-        if sorted_keys(got["issues"]) != sorted_keys(want["issues"]):
-            fail(f"analyze {name}: issues {got['issues']} != {want['issues']}")
-        for k in ("lanes", "surviving_paths", "dropped_forks", "killed_infeasible",
-                  "lanes_errored", "instruction_coverage_pct"):
-            if got["coverage"][k] != want["coverage"][k]:
-                fail(f"analyze {name}: coverage {k} {got['coverage'][k]} != "
-                     f"{want['coverage'][k]}")
-        n_syncs = ci.HOST_SYNCS["count"] - syncs0
+        check_report(name, [i.as_dict() for i in report.issues], report.coverage,
+                     load_json("torch_port", f"{name}_default.json"))
         n_steps = ENGINE_STATS["supersteps"] - steps0
-        print(f"[5] analyze {name}: {len(got['issues'])} issue(s), coverage equal; "
-              f"{wall:.2f} s wall, {n_steps} supersteps, {n_syncs} host syncs "
-              f"({n_syncs / max(1, n_steps):.2f} per superstep)", flush=True)
-    torch.cuda.synchronize()
-    launches = kernels.launch_counts()
-    print(f"[5] main-path launches {launches}", flush=True)
-    for k, n in launches.items():
-        if n <= 0:
-            fail(f"kernel {k} was not launched on the main path")
+        n_syncs = ci.HOST_SYNCS["count"] - syncs0
+        stats = {"wall_s": wall, "engine_s": t_engine, "supersteps": n_steps,
+                 "host_syncs": n_syncs, "host_syncs_per_superstep": n_syncs / max(1, n_steps),
+                 "frames_pushed": int(FRAME_STATS["pushed"]),
+                 "frames_popped": int(FRAME_STATS["popped"]), "issues": len(report.issues),
+                 "launches": counts}
+        print(f"[6] {name} equals the pinned JAX report; {json.dumps(stats)}", flush=True)
+        # config4's caller -> router -> vault chain runs in real frames (the
+        # real-world batch's calls have symbolic targets or windows and take
+        # the enumeration and external paths, as in the JAX engine)
+        if name == "config4" and stats["frames_pushed"] <= 0:
+            fail(f"{name}: no sub-frame was pushed")
+        if counts["tape_append"] <= 0:
+            fail(f"{name}: kernel tape_append was not launched")
+        for k, n in counts.items():
+            launches[k] += n
 
-    # phase 6: the campaign-width batch
+    # phase 7: the campaign-width batch
     codes = [realworld("erc20full")] * BATCH_CONTRACTS + [realworld("erc721")] * BATCH_CONTRACTS
     names = [f"erc20full_{i}" for i in range(BATCH_CONTRACTS)] + \
         [f"erc721_{i}" for i in range(BATCH_CONTRACTS)]
-    kernels.reset_launch_counts()
     torch.cuda.reset_peak_memory_stats()
-    torch.cuda.synchronize()
     syncs0 = ci.HOST_SYNCS["count"]
     steps0 = ENGINE_STATS["lane_steps"]
     supersteps0 = ENGINE_STATS["supersteps"]
     t0 = time.monotonic()
-    sym = SymExecWrapper(codes, contract_names=names, limits=DEFAULT_LIMITS,
-                         lanes_per_contract=64, max_steps=512, transaction_count=2,
-                         device=dev)
-    torch.cuda.synchronize()
+    sym, batch_launches = counted(lambda: SymExecWrapper(
+        codes, contract_names=names, limits=DEFAULT_LIMITS, lanes_per_contract=64,
+        max_steps=512, transaction_count=2, device=dev))
     t_engine = time.monotonic() - t0
     report = fire_lasers(sym)
     wall = time.monotonic() - t0
     lane_steps = ENGINE_STATS["lane_steps"] - steps0
-    batch_launches = kernels.launch_counts()
     stats = {
         "lanes": int(sym.sf.n_lanes), "wall_s": wall, "engine_s": t_engine,
         "detect_s": wall - t_engine, "lane_steps": lane_steps,
@@ -456,9 +707,9 @@ def run_paths(dev) -> dict:
         "issues": len(report.issues), "launches": batch_launches,
         "surviving_paths": report.coverage.get("surviving_paths"),
     }
-    print(f"[6] batch {json.dumps(stats)}", flush=True)
-    for k, n in batch_launches.items():
-        if n <= 0:
+    print(f"[7] batch {json.dumps(stats)}", flush=True)
+    for k in ("divmod_u256", "keccak256", "tape_append"):
+        if batch_launches[k] <= 0:
             fail(f"kernel {k} was not launched in the batch")
     want20 = {(d["swc-id"], d["address"]) for d in json.load(open(os.path.join(
         ROOT, "tests", "fixtures", "torch_port", "erc20full_default.json")))["issues"]}
@@ -470,7 +721,7 @@ def run_paths(dev) -> dict:
 
 
 def profile_paths(dev, codes, names) -> None:
-    """Phase 7, a measurement mode outside the counted runs: (a) the
+    """Phase 8, a measurement mode outside the counted runs: (a) the
     analyze engine of erc20full with each loop stage timed between device
     synchronizations; (b) a torch.profiler window over the batch's first
     16 supersteps for the device's busy share and the top kernels (the
@@ -490,7 +741,7 @@ def profile_paths(dev, codes, names) -> None:
     torch.cuda.synchronize()
     stages = {k: round(ENGINE_STATS[k], 3) for k in ("superstep_s", "forks_s", "propagate_s")}
     ENGINE_STATS["timing"] = False
-    print(f"[7] erc20full engine stages (synchronized): {json.dumps(stages)}, "
+    print(f"[8] erc20full engine stages (synchronized): {json.dumps(stages)}, "
           f"engine {time.monotonic() - t0:.2f} s, "
           f"{ENGINE_STATS['supersteps'] - steps0} supersteps", flush=True)
 
@@ -508,11 +759,11 @@ def profile_paths(dev, codes, names) -> None:
     busy_us = sum(dev_us(e) for e in events)
     n_kernels = sum(e.count for e in events if dev_us(e) > 0)
     top = sorted(events, key=dev_us, reverse=True)[:8]
-    print(f"[7] batch window (16 supersteps, profiled): wall {wall:.2f} s, device busy "
+    print(f"[8] batch window (16 supersteps, profiled): wall {wall:.2f} s, device busy "
           f"{busy_us / 1e6:.3f} s ({100 * busy_us / 1e6 / wall:.1f} %), "
           f"{n_kernels} device ops", flush=True)
     for e in top:
-        print(f"[7]   {dev_us(e) / 1e3:9.2f} ms  x{e.count:<7} {e.key[:90]}", flush=True)
+        print(f"[8]   {dev_us(e) / 1e3:9.2f} ms  x{e.count:<7} {e.key[:90]}", flush=True)
 
 
 if __name__ == "__main__":

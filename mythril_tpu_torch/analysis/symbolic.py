@@ -8,12 +8,12 @@ and after each transaction hands the detection modules an
 (``SymFrontier.to_numpy()``) — the host side reads fields by name, as it
 does on the JAX frontier.
 
-Supported: single-contract and batched runtime analysis, ``bfs``
+Supported: single-contract and batched analysis with call frames and
+precompiles, creation transactions (``creation_bytecodes``), ``bfs``
 strategy, spill/defer of starved forks, one fork block. Refused before
-any device work (:func:`check_supported`): bytecode with CALL-family or
-CREATE opcodes, creation transactions, other strategies, fork blocks,
-the berlin gas schedule, checkpoints, the instruction profiler and
-dynamic loading.
+any device work (``UnsupportedConfiguration``): other strategies, fork
+blocks, the berlin gas schedule, checkpoints, the instruction profiler
+and dynamic loading.
 """
 
 from __future__ import annotations
@@ -29,7 +29,7 @@ import torch
 from ..config import DEFAULT_LIMITS, LimitsConfig
 from ..core import Corpus, make_env
 from ..core import interpreter as ci
-from ..core.frontier import ATTACKER_ADDRESS, CAP_TRAPS, TRAP_NAMES
+from ..core.frontier import ATTACKER_ADDRESS, CAP_TRAPS, CREATOR_ADDRESS, TRAP_NAMES
 from ..device import resolve_device
 from ..disassembler import ContractImage
 from ..obs import metrics as obs_metrics
@@ -40,7 +40,7 @@ from ..smt.tape import (HostNode, HostTape, TapeHostCache, extract_tape,
                         intern_node)
 from ..symbolic import SymSpec, between_txs, make_sym_frontier, sym_run
 from ..symbolic.engine import rebalance_parked
-from ..support import check_bytecodes_supported, UnsupportedConfiguration
+from ..support import UnsupportedConfiguration
 
 log = logging.getLogger(__name__)
 
@@ -232,7 +232,15 @@ def coverage_summary(tx_contexts) -> dict:
 
 class SymExecWrapper:
     """Build + run the symbolic exploration for a batch of contracts on
-    ``device`` (``"cuda"`` unless the caller asks for ``"cpu"``)."""
+    ``device`` (``"cuda"`` unless the caller asks for ``"cpu"``).
+
+    ``creation_bytecodes`` enables the creation transaction: each lane
+    first runs its contract's CREATION bytecode with the CREATOR as
+    caller, keeps the constructor's storage writes, then switches to the
+    runtime image for the ``transaction_count`` attacker message calls.
+    The corpus holds the creation images at ``[0, C)`` and the runtime
+    images at ``[C, 2C)``; ``create_timeout`` bounds the constructor run
+    alone."""
 
     def __init__(
         self,
@@ -254,6 +262,7 @@ class SymExecWrapper:
         fork_block: int = 0,
         device="cuda",
         creation_bytecodes: Optional[Sequence[bytes]] = None,
+        create_timeout: Optional[float] = None,
         checkpoint_dir: Optional[str] = None,
         enable_iprof: bool = False,
         dyn_loader=None,
@@ -261,9 +270,6 @@ class SymExecWrapper:
         from ..plugin.loader import LaserPluginLoader
 
         # every cut of this engine is refused here, before any device work
-        if creation_bytecodes is not None:
-            raise UnsupportedConfiguration("creation transactions (--creation-code) are "
-                                           "not supported by the PyTorch engine yet")
         if checkpoint_dir is not None:
             raise UnsupportedConfiguration("--checkpoint-dir is not supported by the "
                                            "PyTorch engine yet")
@@ -283,7 +289,6 @@ class SymExecWrapper:
             raise UnsupportedConfiguration(f"gas schedule {limits.gas_schedule!r} is not "
                                            "supported by the PyTorch engine yet")
         names = list(contract_names or [f"contract_{i}" for i in range(len(bytecodes))])
-        check_bytecodes_supported(bytecodes, names)
         dev = resolve_device(device)
         self.device = dev
 
@@ -302,10 +307,19 @@ class SymExecWrapper:
                              else time.monotonic() + execution_timeout)
         images = [ContractImage.from_bytecode(c, limits.max_code) for c in bytecodes]
         C = len(images)
+        with_creation = creation_bytecodes is not None
+        if with_creation:
+            assert len(creation_bytecodes) == C
+            # corpus layout: creation images [0, C), runtime images [C, 2C)
+            images = [ContractImage.from_bytecode(c, limits.max_code)
+                      for c in creation_bytecodes] + images
+            names = [f"{n} (constructor)" for n in names] + names
+        runtime_base = C if with_creation else 0
         self.images = images
         self.corpus = Corpus.from_images(images, dev)
         corpus_host = self.corpus.to_numpy()
-        self._visited = torch.zeros((C, limits.max_code), dtype=torch.bool, device=dev)
+        self._visited = torch.zeros((len(images), limits.max_code), dtype=torch.bool,
+                                    device=dev)
         P = C * lanes_per_contract
         cid0 = np.repeat(np.arange(C, dtype=np.int32), lanes_per_contract)
         active = np.zeros(P, dtype=bool)
@@ -313,8 +327,13 @@ class SymExecWrapper:
         sf = make_sym_frontier(
             P, limits, contract_id=cid0, active=active, n_contracts=C,
             contract_addrs=(list(contract_addrs) if contract_addrs is not None else None),
-            caller=ATTACKER_ADDRESS, device=dev,
+            caller=CREATOR_ADDRESS if with_creation else ATTACKER_ADDRESS, device=dev,
         )
+        if with_creation:
+            # the account table resolves calls/extcode against RUNTIME images
+            b = sf.base
+            sf = sf.replace(base=b.replace(
+                acct_code=torch.where(b.acct_code >= 0, b.acct_code + C, b.acct_code)))
         env = make_env(P, device=dev)
         self.tx_contexts: List[AnalysisContext] = []
 
@@ -389,7 +408,7 @@ class SymExecWrapper:
                 self._parked_end += int(parked.sum())
             return sf
 
-        def run_one_tx(sf, is_last: bool):
+        def run_one_tx(sf, is_last: bool, handoff_kw=None):
             self.plugin_loader.fire("on_tx_start", self._cur_tx, sf)
             sf = explore(sf)
             with obs_trace.span("harvest", tx=self._cur_tx):
@@ -404,11 +423,32 @@ class SymExecWrapper:
                 self.tx_contexts.append(ctx)
             self.plugin_loader.fire("on_tx_end", ctx)
             if not is_last:
-                sf = between_txs(sf, first_message_tx=0)
+                kw = dict(handoff_kw or {})
+                # with a creation tx, the first MESSAGE call is tx_id 1 —
+                # the dependency pruner must not retire its paths
+                kw.setdefault("first_message_tx", 1 if with_creation else 0)
+                sf = between_txs(sf, **kw)
             return sf
 
         self._cur_tx = 0
         self.plugin_loader.fire("initialize", self)
+        if with_creation:
+            # --create-timeout narrows the deadline for the constructor run
+            # only; hitting it must not cancel the message-call phase
+            outer_deadline = self._deadline_at
+            if create_timeout is not None:
+                cdl = time.monotonic() + create_timeout
+                self._deadline_at = cdl if outer_deadline is None else min(outer_deadline, cdl)
+            cid_runtime = torch.as_tensor(cid0 + runtime_base, device=dev)
+            # a constructor needn't mutate storage for the deploy to count
+            sf = run_one_tx(sf, is_last=False, handoff_kw=dict(
+                require_mutation=False, new_contract_id=cid_runtime))
+            self._cur_tx += 1
+            if create_timeout is not None:
+                self._deadline_at = outer_deadline
+                if self.timed_out and (outer_deadline is None
+                                       or time.monotonic() < outer_deadline):
+                    self.timed_out = False
         for t in range(transaction_count):
             if self.timed_out:
                 break

@@ -2,11 +2,12 @@
 
 Commands: ``analyze`` (``a``), ``list-detectors``, ``version``. The flags
 of ``analyze`` are the JAX package's for what this engine runs, plus
-``--device {cuda,cpu}`` (default ``cuda``). Flags of parts that are not
-ported yet (creation transactions, corpus campaigns, checkpoints,
-plugins, the profiler, RPC loading, strategies other than bfs, the test
-shape profile's call depth) are accepted by the parser and refused with
-an error before any device work.
+``--device {cuda,cpu}`` (default ``cuda``). ``--creation-code PATH``
+runs the constructor transaction first. Flags of parts that are not
+ported yet (corpus campaigns, checkpoints, plugins, the profiler, RPC
+loading, strategies other than bfs, the test shape profile's call depth)
+are accepted by the parser and refused with an error before any device
+work.
 
 Run as ``python -m mythril_tpu_torch <command> ...``.
 """
@@ -28,6 +29,9 @@ def create_parser() -> argparse.ArgumentParser:
     a.add_argument("-f", "--codefile", metavar="PATH",
                    help="file holding runtime bytecode as hex")
     a.add_argument("-c", "--code", metavar="HEX", help="runtime bytecode as a hex string")
+    a.add_argument("--creation-code", metavar="PATH",
+                   help="file holding CREATION bytecode as hex; enables the "
+                        "constructor transaction")
     a.add_argument("--name", default="MAIN", help="contract display name")
     a.add_argument("-t", "--transaction-count", type=int, default=2,
                    help="number of attacker message-call transactions")
@@ -51,6 +55,9 @@ def create_parser() -> argparse.ArgumentParser:
                    help="run detection modules concurrently")
     a.add_argument("--execution-timeout", type=float, default=None,
                    help="wall-clock budget in seconds for the exploration")
+    a.add_argument("--create-timeout", type=float, default=None,
+                   help="wall-clock budget in seconds for the CREATION "
+                        "transaction (constructor) only")
     a.add_argument("--strategy", default="bfs",
                    choices=["bfs", "dfs", "naive-random", "weighted-random",
                             "coverage", "beam"],
@@ -64,7 +71,7 @@ def create_parser() -> argparse.ArgumentParser:
     a.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                    help="where the engine runs (default: the CUDA card)")
     # accepted so that they can be refused with a clear message
-    for flag, meta in (("--creation-code", "PATH"), ("--corpus", "DIR"),
+    for flag, meta in (("--corpus", "DIR"),
                        ("--checkpoint-dir", "DIR"), ("--plugin-dir", "DIR"),
                        ("-a", "ADDRESS"), ("--rpc", "URI"),
                        ("--call-depth-limit", "N")):
@@ -79,7 +86,6 @@ def create_parser() -> argparse.ArgumentParser:
 
 
 _CUT_FLAGS = (
-    ("creation_code", "--creation-code (creation transactions)"),
     ("corpus", "--corpus (campaigns)"),
     ("checkpoint_dir", "--checkpoint-dir"),
     ("plugin_dir", "--plugin-dir"),
@@ -111,14 +117,20 @@ def _limits_for(args):
 def _load_contracts(args):
     from ..mythril import MythrilDisassembler
 
+    creation = None
+    if args.creation_code:
+        with open(args.creation_code) as fh:
+            creation = fh.read()
     if args.code:
-        return [MythrilDisassembler.load_from_bytecode(args.code, name=args.name)]
+        return [MythrilDisassembler.load_from_bytecode(args.code, creation_code=creation,
+                                                       name=args.name)]
     if args.codefile:
         if args.codefile.endswith(".sol"):
             print("error: solidity sources are not supported by the PyTorch engine; "
                   "pass runtime bytecode", file=sys.stderr)
             raise SystemExit(2)
-        return [MythrilDisassembler.load_from_file(args.codefile, name=args.name)]
+        return [MythrilDisassembler.load_from_file(
+            args.codefile, creation_path=args.creation_code, name=args.name)]
     print("error: provide bytecode via -c/--code or -f/--codefile", file=sys.stderr)
     raise SystemExit(2)
 
@@ -130,15 +142,9 @@ def exec_analyze(args) -> int:
         raise SystemExit(2)
     _refuse_cuts(args)
     from ..mythril import MythrilAnalyzer, MythrilConfig
-    from ..support import UnsupportedConfiguration, check_bytecodes_supported
     from ..symbolic import SymSpec
 
     contracts = _load_contracts(args)
-    try:
-        check_bytecodes_supported([c.code for c in contracts], [c.name for c in contracts])
-    except UnsupportedConfiguration as e:
-        print(f"error: {e}", file=sys.stderr)
-        raise SystemExit(2)
     cfg = MythrilConfig(
         limits=_limits_for(args),
         transaction_count=args.transaction_count,
@@ -150,6 +156,7 @@ def exec_analyze(args) -> int:
         parallel_solving=args.parallel_solving,
         loop_bound=args.loop_bound,
         execution_timeout=args.execution_timeout,
+        create_timeout=args.create_timeout,
         strategy=args.strategy,
         spec=SymSpec(storage=not args.concrete_storage),
         device=args.device,

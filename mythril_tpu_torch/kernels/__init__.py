@@ -4,6 +4,8 @@
 K1     ``csrc/u256_divmod.cu``     ``divmod_u256`` — u256 DIV/MOD
 K2     ``csrc/keccak256.cu``       ``keccak256`` — SHA3 of per-lane bytes
 K3     ``csrc/tape_append.cu``     ``tape_append`` — hash-consed tape append
+K4     ``csrc/sha256.cu``          ``sha256`` — SHA-256 (precompile 0x2)
+K5     ``csrc/u256_modexp.cu``     ``modexp_u256`` — MODEXP (precompile 0x5)
 =====  ==========================  =========================================
 
 Each source has a plain C interface. :func:`build` compiles them with
@@ -16,7 +18,8 @@ Each wrapper checks device, dtype, shape and contiguity, allocates its
 outputs with ``torch.empty``, launches on PyTorch's current stream, raises
 if the launch returned a CUDA error, and adds one to its ``launches``
 counter. The plain PyTorch versions live beside their callers
-(``ops/u256.py``, ``ops/keccak.py``, ``symbolic/engine.py``); those
+(``ops/u256.py``, ``ops/keccak.py``, ``ops/sha256.py``,
+``symbolic/engine.py``); those
 callers route a CPU tensor to the plain version and a CUDA tensor here.
 """
 
@@ -38,6 +41,8 @@ SOURCES = {
     "u256_divmod": "u256_divmod.cu",
     "keccak256": "keccak256.cu",
     "tape_append": "tape_append.cu",
+    "sha256": "sha256.cu",
+    "u256_modexp": "u256_modexp.cu",
 }
 NVCC_FLAGS = ["-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
@@ -90,8 +95,11 @@ def build(verbose: bool = False) -> float:
         libs["u256_divmod"].divmod_u256.argtypes = [vp, vp, vp, vp, ci, vp]
         libs["keccak256"].keccak256.argtypes = [vp, vp, vp, ci, ci, vp]
         libs["tape_append"].tape_append.argtypes = [vp] * 13 + [ci, ci, vp]
+        libs["sha256"].sha256.argtypes = [vp, vp, vp, ci, ci, vp]
+        libs["u256_modexp"].modexp_u256.argtypes = [vp, vp, vp, vp, ci, vp]
         for lib, fn in (("u256_divmod", "divmod_u256"), ("keccak256", "keccak256"),
-                        ("tape_append", "tape_append")):
+                        ("tape_append", "tape_append"), ("sha256", "sha256"),
+                        ("u256_modexp", "modexp_u256")):
             getattr(libs[lib], fn).restype = ci
         _LIBS.update(libs)
         BUILD_SECONDS = time.monotonic() - t0
@@ -196,8 +204,41 @@ def tape_append(tape_op, tape_a, tape_b, tape_imm, tape_hash, tape_len,
     return ids, overflow
 
 
+@_launch_counter
+def sha256(data: torch.Tensor, length: torch.Tensor):
+    """K4: data ``uint8[P, N]``, length ``int32[P]`` -> ``int64[P, 8]``."""
+    dev = data.device
+    if data.dim() != 2:
+        raise ValueError("sha256: data must be [P, N]")
+    P, N = data.shape
+    _check(data, "sha256 data", torch.uint8, (P, N), dev)
+    _check(length, "sha256 length", torch.int32, (P,), dev)
+    out = torch.empty((P, 8), dtype=torch.int64, device=dev)
+    err = _lib("sha256").sha256(data.data_ptr(), length.data_ptr(), out.data_ptr(),
+                                P, N, _stream(dev))
+    _raise_on(err, "sha256")
+    sha256.launches += 1
+    return out
+
+
+@_launch_counter
+def modexp_u256(base: torch.Tensor, e: torch.Tensor, m: torch.Tensor):
+    """K5 on int64 carrier words ``[..., 8]`` -> base ** e mod m."""
+    dev = base.device
+    for t, what in ((base, "base"), (e, "e"), (m, "m")):
+        _check(t, f"modexp_u256 {what}", torch.int64, base.shape, dev)
+    if base.shape[-1] != 8:
+        raise ValueError("modexp_u256: last dim must be 8 limbs")
+    out = torch.empty_like(base)
+    err = _lib("u256_modexp").modexp_u256(base.data_ptr(), e.data_ptr(), m.data_ptr(),
+                                          out.data_ptr(), base.numel() // 8, _stream(dev))
+    _raise_on(err, "modexp_u256")
+    modexp_u256.launches += 1
+    return out
+
+
 KERNELS = {"divmod_u256": divmod_u256, "keccak256": keccak256,
-           "tape_append": tape_append}
+           "tape_append": tape_append, "sha256": sha256, "modexp_u256": modexp_u256}
 
 
 def reset_launch_counts():

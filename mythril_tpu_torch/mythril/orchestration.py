@@ -1,5 +1,6 @@
 """Config + loading + analysis front door (the JAX package's
-``mythril/orchestration.py`` for runtime bytecode, plus ``device``)."""
+``mythril/orchestration.py`` for runtime and optional creation bytecode,
+plus ``device``)."""
 
 from __future__ import annotations
 
@@ -27,6 +28,7 @@ class MythrilConfig:
     solver_timeout: Optional[float] = None
     loop_bound: Optional[int] = None      # None = limits.loop_bound
     execution_timeout: Optional[float] = None
+    create_timeout: Optional[float] = None  # seconds for the creation tx
     parallel_solving: bool = False
     strategy: str = "bfs"
     plugins: tuple = ()
@@ -40,10 +42,11 @@ class MythrilConfig:
 
 @dataclass
 class EVMContract:
-    """Runtime bytecode for one contract."""
+    """Runtime (+ optional creation) bytecode for one contract."""
 
     code: bytes
     name: str = "MAIN"
+    creation_code: Optional[bytes] = None
     address: Optional[int] = None
     _disassembly: Optional[Disassembly] = field(default=None, repr=False)
 
@@ -58,17 +61,25 @@ class EVMContract:
 
 
 class MythrilDisassembler:
-    """Loading front door: hex strings and hex files of runtime bytecode."""
+    """Loading front door: hex strings and hex files of runtime (and
+    optional creation) bytecode."""
 
     @staticmethod
-    def load_from_bytecode(code, name: str = "MAIN") -> EVMContract:
-        return EVMContract(code=_to_bytes(code), name=name)
+    def load_from_bytecode(code, creation_code=None, name: str = "MAIN") -> EVMContract:
+        return EVMContract(
+            code=_to_bytes(code), name=name,
+            creation_code=_to_bytes(creation_code) if creation_code else None)
 
     @staticmethod
-    def load_from_file(path: str, name: Optional[str] = None) -> EVMContract:
-        with open(path) as fh:
-            return EVMContract(code=_to_bytes(fh.read()),
-                               name=name or path.rsplit("/", 1)[-1])
+    def load_from_file(path: str, creation_path: Optional[str] = None,
+                       name: Optional[str] = None) -> EVMContract:
+        def read(p: str) -> bytes:
+            with open(p) as fh:
+                return _to_bytes(fh.read())
+
+        return EVMContract(
+            code=read(path), name=name or path.rsplit("/", 1)[-1],
+            creation_code=read(creation_path) if creation_path else None)
 
 
 class MythrilAnalyzer:
@@ -82,6 +93,12 @@ class MythrilAnalyzer:
 
     def fire_lasers(self, modules: Optional[List[str]] = None) -> Report:
         cfg = self.config
+        creation = [c.creation_code for c in self.contracts]
+        with_creation = any(c is not None for c in creation)
+        if with_creation:
+            # contracts without creation code deploy via an empty-effect
+            # constructor (immediate STOP) so the batch stays uniform
+            creation = [c if c is not None else b"\x00" for c in creation]
         addrs = None
         if any(c.address is not None for c in self.contracts):
             from ..core.frontier import contract_address
@@ -99,7 +116,9 @@ class MythrilAnalyzer:
             solver_iters=cfg.solver_iters,
             solver_timeout=cfg.solver_timeout,
             transaction_count=cfg.transaction_count,
+            creation_bytecodes=creation if with_creation else None,
             execution_timeout=cfg.execution_timeout,
+            create_timeout=cfg.create_timeout,
             strategy=cfg.strategy,
             plugins=cfg.plugins,
             device=cfg.device,

@@ -1,10 +1,10 @@
 """End to end on the CPU: the PyTorch analyzer against the JAX package.
 
-- the 14 CALL-free golden fixtures, issue for issue against
-  ``tests/fixtures/goldens`` (the other six need call frames and are
-  refused, as the swc105_drain check shows);
-- the CLI with ``--device cpu -o json``, the refusal of each cut, and
-  the CALL pre-scan.
+- the 20 golden fixtures, issue for issue against ``tests/fixtures/goldens``;
+- the CLI with ``--device cpu -o json``, with ``--creation-code`` (the
+  precompile fixture at the test profile, against the JAX CLI's report
+  pinned in ``tests/fixtures/torch_port/precompiles_test.json``), and the
+  refusal of each cut.
 
 (The [erc20full, erc721] batch against the JAX ``SymExecWrapper`` —
 issues, coverage and frontiers — is in ``test_torch_engine.py``, whose
@@ -21,11 +21,12 @@ import pytest
 
 import torch_port_child
 from test_goldens import GOLDEN_DIR, _fixtures, _issue_key
-from mythril_tpu_torch.support import FRAME_OPCODES, frame_opcodes_in
+from torch_port_fixtures import FIXTURE_DIR, precompiles_files
 
-CALL_FREE = sorted(n for n, (code, _) in _fixtures().items() if not frame_opcodes_in(code))
-CUT_FLAGS = [["--creation-code", "x.hex"], ["--corpus", "d"], ["--checkpoint-dir", "d"],
+GOLDENS = sorted(_fixtures())
+CUT_FLAGS = [["--corpus", "d"], ["--checkpoint-dir", "d"],
              ["--strategy", "dfs"], ["--enable-iprof"], ["--plugin-dir", "d"]]
+CREATION_ARGS = ["--limits-profile", "test", "--lanes-per-contract", "16", "--max-steps", "384"]
 
 
 def _sorted_keys(issue_dicts):
@@ -34,12 +35,11 @@ def _sorted_keys(issue_dicts):
 
 
 def _compute(path):
-    """Child process: the goldens, the prescan refusal and the CLI runs."""
+    """Child process: the goldens and the CLI runs."""
     torch_port_child.torch_single_thread()
     from mythril_tpu_torch.analysis import SymExecWrapper, fire_lasers
     from mythril_tpu_torch.config import TEST_LIMITS
     from mythril_tpu_torch.interfaces.cli import main
-    from mythril_tpu_torch.support import UnsupportedConfiguration
 
     kw = dict(limits=TEST_LIMITS, lanes_per_contract=16, max_steps=192)
 
@@ -53,21 +53,18 @@ def _compute(path):
         return rc, out.getvalue(), err.getvalue()
 
     res = {}
-    for name in CALL_FREE:
+    for name in GOLDENS:
         code, fkw = _fixtures()[name]
         sym = SymExecWrapper([code], device="cpu", **kw, **fkw)
         res["golden", name] = _sorted_keys(i.as_dict() for i in fire_lasers(sym.ctx).issues)
-    try:  # refused before the device is even looked at
-        SymExecWrapper([_fixtures()["swc105_drain"][0]], device="cuda", **kw)
-        res["prescan"] = None
-    except UnsupportedConfiguration as e:
-        res["prescan"] = str(e)
+    creation, runtime = precompiles_files()
+    res["creation"] = cli("analyze", "-f", runtime, "--creation-code", creation,
+                          "--device", "cpu", "-o", "json", *CREATION_ARGS)
     res["json"] = cli("analyze", "-c", _fixtures()["swc124_arbitrary_write"][0].hex(),
                       "--device", "cpu", "-o", "json", "--limits-profile", "test",
                       "--lanes-per-contract", "16", "--max-steps", "192")
     for flag in CUT_FLAGS:
         res["cut", flag[0]] = cli("analyze", "-c", "00", "--device", "cpu", *flag)
-    res["call"] = cli("analyze", "-c", _fixtures()["swc105_drain"][0].hex(), "--device", "cpu")
     res["version"] = cli("version")
     res["detectors"] = cli("list-detectors")
     torch_port_child.dump(res, path)
@@ -78,18 +75,34 @@ def res(tmp_path_factory):
     return torch_port_child.run("test_torch_analyze", "_compute", tmp_path_factory)
 
 
-def test_the_call_free_goldens_are_fourteen():
-    assert len(CALL_FREE) == 14
-
-
-@pytest.mark.parametrize("name", CALL_FREE)
+@pytest.mark.parametrize("name", GOLDENS)
 def test_golden(res, name):
     with open(os.path.join(GOLDEN_DIR, f"{name}.json")) as fh:
         assert res["golden", name] == json.load(fh)
 
 
-def test_call_prescan_refuses_swc105_drain_before_device_work(res):
-    assert res["prescan"] is not None and "CALL at" in res["prescan"]
+def _pinned_creation_report():
+    with open(os.path.join(FIXTURE_DIR, "precompiles_test.json")) as fh:
+        return json.load(fh)
+
+
+def test_cli_creation_code_issues_match_jax(res):
+    rc, out, _ = res["creation"]
+    assert rc == 0
+    got = json.loads(out)
+    key = lambda d: (d["contract"], d["swc-id"], d["address"], d["title"])
+    want = _pinned_creation_report()
+    assert sorted(map(_issue_key, got["issues"]), key=key) == \
+        sorted(map(_issue_key, want["issues"]), key=key)
+    assert any(d["contract"] == "MAIN (constructor)" for d in got["issues"])
+
+
+def test_cli_creation_code_coverage_matches_jax(res):
+    got = json.loads(res["creation"][1])["coverage"]
+    want = _pinned_creation_report()["coverage"]
+    for k in ("lanes", "surviving_paths", "dropped_forks", "killed_infeasible",
+              "lanes_errored", "instruction_coverage_pct"):
+        assert got[k] == want[k], k
 
 
 def test_cli_device_cpu_json(res):
@@ -106,17 +119,6 @@ def test_cli_device_cpu_json(res):
 def test_cli_refuses_the_cuts(res, flag):
     rc, _, err = res["cut", flag]
     assert rc == 2 and "not supported" in err
-
-
-def test_cli_refuses_call_bytecode(res):
-    rc, _, err = res["call"]
-    assert rc == 2 and "CALL at" in err
-
-
-def test_frame_opcode_prescan_skips_push_data():
-    # 0xF1 inside PUSH2 data is not an instruction
-    assert frame_opcodes_in(bytes([0x61, 0xF1, 0xF1, 0x00])) == []
-    assert frame_opcodes_in(bytes([0x5F, 0xF1])) == [(1, FRAME_OPCODES[0xF1])]
 
 
 def test_version_and_list_detectors(res):

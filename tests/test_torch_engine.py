@@ -178,11 +178,8 @@ def _differing(want, got):
 
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
-    d = tmp_path_factory.mktemp("engine")
-    jax = torch_port_child.start("test_torch_engine", "_jax_reference", d / "jax.pkl")
-    port = torch_port_child.start("test_torch_engine", "_torch_run", d / "torch.pkl")
-    want = torch_port_child.finish(jax, d / "jax.pkl")
-    return want, torch_port_child.finish(port, d / "torch.pkl")
+    return torch_port_child.run_pair("test_torch_engine", "_jax_reference", "_torch_run",
+                                     tmp_path_factory)
 
 
 @pytest.mark.parametrize("batch", sorted(BATCHES))

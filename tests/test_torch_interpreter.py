@@ -88,11 +88,8 @@ def _torch_run(path):
 
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
-    d = tmp_path_factory.mktemp("interpreter")
-    jax = torch_port_child.start("test_torch_interpreter", "_jax_reference", d / "jax.pkl")
-    port = torch_port_child.start("test_torch_interpreter", "_torch_run", d / "torch.pkl")
-    want = torch_port_child.finish(jax, d / "jax.pkl")
-    got = torch_port_child.finish(port, d / "torch.pkl")
+    want, got = torch_port_child.run_pair("test_torch_interpreter", "_jax_reference",
+                                          "_torch_run", tmp_path_factory)
     return dict(n_vectors=len(_inputs()[0]), start=(want["start"], got["start"]),
                 end=(want["end"], got["end"]))
 

@@ -1,7 +1,9 @@
 """The PyTorch package stands alone: no module of ``mythril_tpu_torch``
-(and not ``chip_smoke.py``) imports JAX or the JAX package, an analyze
-run loads neither, and the smoke script's golden fixtures are the
-CALL-free fixtures of ``tests/test_goldens.py``."""
+(and not ``chip_smoke.py``) imports JAX or the JAX package — the host
+natives it copied (``ops/natives_host.py``, ``bn128.py``, ``blake2.py``,
+``secp256k1.py``) included —, an analyze run loads neither, and the
+smoke script's golden fixtures are the fixtures of
+``tests/test_goldens.py``."""
 
 import ast
 import importlib.util
@@ -62,15 +64,37 @@ def test_cpu_analyze_loads_neither_jax_nor_the_jax_package():
     assert r.returncode == 0, r.stdout + r.stderr
 
 
-def test_chip_smoke_fixtures_equal_the_goldens():
-    from test_goldens import _fixtures
-    from mythril_tpu_torch.support import frame_opcodes_in
+def test_the_copied_host_natives_are_checked():
+    copied = {os.path.join(PKG, "ops", f"{m}.py")
+              for m in ("natives_host", "bn128", "blake2", "secp256k1", "sha256")}
+    assert copied <= set(_sources())
 
+
+def _smoke():
     spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
     smoke = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(smoke)
-    want = {n: code for n, (code, _) in _fixtures().items() if not frame_opcodes_in(code)}
-    assert smoke.golden_fixtures() == want
+    return smoke
+
+
+def test_chip_smoke_fixtures_equal_the_goldens():
+    from test_goldens import _fixtures
+
+    want = {n: code for n, (code, _) in _fixtures().items()}
+    assert _smoke().golden_fixtures() == want
+
+
+def test_chip_smoke_systems_equal_the_test_fixtures():
+    # the smoke script keeps its own copy of the real-world batch and of
+    # config 4 (torch_port_fixtures also pins the JAX reports): the same
+    # contracts, in the same corpus order
+    import torch_port_fixtures as tpf
+
+    smoke = _smoke()
+    assert (smoke.REALWORLD, smoke.CONFIG4, smoke.COVERAGE_KEYS) == \
+        (tpf.REALWORLD, tpf.CONFIG4, tpf.COVERAGE_KEYS)
+    assert smoke.realworld_system() == tpf.realworld_system()
+    assert smoke.config4_system() == tpf.config4_system()
 
 
 def _compute(path):
@@ -85,11 +109,18 @@ def _compute(path):
     except RuntimeError as e:
         res["default"] = str(e)
     cpu = torch.zeros((4, 8), dtype=torch.int64)
-    try:
-        kernels.divmod_u256(cpu, cpu)
-        res["cpu_tensor_to_kernel"] = None
-    except ValueError as e:
-        res["cpu_tensor_to_kernel"] = str(e)
+    calls = {
+        "divmod_u256": lambda: kernels.divmod_u256(cpu, cpu),
+        "sha256": lambda: kernels.sha256(torch.zeros((4, 64), dtype=torch.uint8),
+                                         torch.zeros(4, dtype=torch.int32)),
+        "modexp_u256": lambda: kernels.modexp_u256(cpu, cpu, cpu),
+    }
+    for name, call in calls.items():
+        try:
+            call()
+            res["cpu_tensor_to", name] = None
+        except ValueError as e:
+            res["cpu_tensor_to", name] = str(e)
     torch_port_child.dump(res, path)
 
 
@@ -106,9 +137,12 @@ def test_entry_points_default_to_the_card(res):
         assert "no CUDA device" in res["default"]
 
 
-def test_cuda_tensor_never_falls_back_to_plain(res):
-    assert res["cpu_tensor_to_kernel"] is not None
-    assert "CUDA tensor" in res["cpu_tensor_to_kernel"]
+@pytest.mark.parametrize("kernel", ["divmod_u256", "sha256", "modexp_u256"])
+def test_cuda_tensor_never_falls_back_to_plain(res, kernel):
+    # a kernel wrapper takes CUDA tensors only (and raises on anything
+    # else); the routing functions send a CUDA tensor nowhere but here
+    assert res["cpu_tensor_to", kernel] is not None
+    assert "CUDA tensor" in res["cpu_tensor_to", kernel]
 
 
 def test_collecting_the_port_tests_loads_no_torch():

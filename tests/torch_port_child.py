@@ -8,6 +8,7 @@ per-process budget (docs/xla-cpu-segfault.md), and an in-process version
 of these tests made workers crash in other files' compiles.
 """
 
+import fcntl
 import os
 import pickle
 import subprocess
@@ -38,9 +39,56 @@ def finish(proc: subprocess.Popen, path, timeout: float = 900):
         return pickle.load(fh)
 
 
+_DONE = {}
+
+
+def once(key: str, compute, tmp_path_factory):
+    """``compute()`` once per test session, for every module that asks
+    with the same key. Under pytest-xdist the tests may be spread over
+    several workers, each of which would run the children again; instead
+    the workers share the result through a file beside their temp dirs:
+    the first to take the lock computes, the others wait and load it."""
+    if key not in _DONE:
+        _DONE[key] = _once(key, compute, tmp_path_factory)
+    return _DONE[key]
+
+
+def _once(key: str, compute, tmp_path_factory):
+    uid = os.environ.get("PYTEST_XDIST_TESTRUNUID")
+    if not uid:
+        return compute()
+    d = tmp_path_factory.getbasetemp().parent / f"torch-port-{uid}"
+    d.mkdir(exist_ok=True)
+    out = d / f"{key}.pkl"
+    with open(d / f"{key}.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if not out.exists():
+            res = compute()
+            dump(res, d / f"{key}.tmp")
+            os.replace(d / f"{key}.tmp", out)
+            return res
+    with open(out, "rb") as fh:
+        return pickle.load(fh)
+
+
 def run(module: str, func: str, tmp_path_factory, timeout: float = 900):
-    path = tmp_path_factory.mktemp(func.strip("_")) / "out.pkl"
-    return finish(start(module, func, path), path, timeout)
+    def compute():
+        path = tmp_path_factory.mktemp(func.strip("_")) / "out.pkl"
+        return finish(start(module, func, path), path, timeout)
+
+    return once(f"{module}.{func}", compute, tmp_path_factory)
+
+
+def run_pair(module: str, jax_func: str, torch_func: str, tmp_path_factory):
+    """The module's JAX and PyTorch children side by side -> (jax, torch)."""
+    def compute():
+        d = tmp_path_factory.mktemp(module)
+        jax = start(module, jax_func, d / "jax.pkl")
+        port = start(module, torch_func, d / "torch.pkl")
+        want = finish(jax, d / "jax.pkl")
+        return want, finish(port, d / "torch.pkl")
+
+    return once(f"{module}.pair", compute, tmp_path_factory)
 
 
 def dump(obj, path) -> None:

@@ -1,0 +1,235 @@
+"""The precompile fixture of the PyTorch port's tests and smoke run, and
+the script that pins the JAX package's reports for the full-width runs.
+
+``precompiles``: a contract in the solc shape (creation code = the
+constructor, then a CODECOPY/RETURN of the runtime image appended to
+it), assembled with the port's assembler (there is no solc here).
+
+- The constructor does two precompile-heavy initializations on
+  CONCRETE memory, so the calls reach the device kernels (symbolic input
+  would drop to the leaf path): the zero-hash ladder of the Eth2 deposit
+  contract (``ethereum/consensus-specs``, ``solidity_deposit_contract/
+  deposit_contract.sol``: ``zero_hashes[i+1] = sha256(zero_hashes[i] ++
+  zero_hashes[i])``, a loop of 4 levels here, within the loop bound of
+  the test profile)
+  with SHA-256 (0x2), and an RSA-accumulator setup ``A = g ** e1 mod N``,
+  ``A = A ** e2 mod N`` with constant 32-byte ``g``, ``e1``, ``e2``,
+  ``N`` with MODEXP (0x5).
+- The runtime image: ``deposit(bytes32)`` hashes the caller's leaf with
+  the stored ladder, ``accumulate(uint256)`` raises the accumulator to a
+  caller-chosen exponent, ``claim(bytes32)`` pays out the balance to a
+  caller whose preimage hashes to the deposit root.
+
+Files: ``tests/fixtures/torch_port/precompiles.bin`` (creation) and
+``precompiles.bin-runtime``. Regenerate them and the pinned JAX reports
+with ``JAX_PLATFORMS=cpu python tests/torch_port_fixtures.py`` (the
+reports take minutes on a CPU).
+"""
+
+import json
+import os
+import sys
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+ROOT = os.path.dirname(HERE)
+FIXTURE_DIR = os.path.join(HERE, "fixtures", "torch_port")
+GAS = ("push2", 0xFFFF)
+
+SEL_DEPOSIT = 0x2D9A6E3F   # deposit(bytes32)
+SEL_ACCUMULATE = 0x4C1F8D1A  # accumulate(uint256)
+SEL_CLAIM = 0xBD66528A     # claim(bytes32)
+
+ZERO_HASH_SLOT = 0x100      # zero_hashes[i] at slot 0x100 + i
+ACC_SLOT, ROOT_SLOT, TOTAL_SLOT, N_SLOT = 1, 2, 3, 4
+LEVELS = 4
+RSA_G = 0x3B9ACA07C1D2E3F405162738495A6B7C8D9EAFB0C1D2E3F40516273849AF0E1D
+RSA_E1 = 0xF2A1D9C38B7E65443322110FFEEDDCCBBAA998877665544332211000FEDCBA99
+RSA_E2 = 0x10001
+RSA_N = 0xC4F2D8A1B3E5F7092C4E6A8BADCFE1032547698BADCFE10325476980B1A2C3D5
+
+
+def _assemble(*tokens):
+    sys.path.insert(0, ROOT)
+    from mythril_tpu_torch.disassembler.asm import assemble
+
+    return assemble(*tokens)
+
+
+def _call_pre(addr, args, ret):
+    return [ret[1], ret[0], args[1], args[0], 0, addr, GAS, "CALL"]
+
+
+def _modexp_tokens(base_tokens, exp_tokens, mod_tokens, header=True):
+    """MODEXP over 32-byte operands from memory [0, 192) into [192, 224)
+    (``header`` False: the three length words are already in memory)."""
+    head = [32, 0, "MSTORE", 32, 32, "MSTORE", 32, 64, "MSTORE"] if header else []
+    return [*head, *base_tokens, 96, "MSTORE", *exp_tokens, 128, "MSTORE",
+            *mod_tokens, 160, "MSTORE",
+            *_call_pre(5, (0, 192), (192, 32)), "POP", ("push1", 192), "MLOAD"]
+
+
+def precompiles_runtime() -> bytes:
+    return _assemble(
+        0, "CALLDATALOAD", 0xE0, "SHR",
+        "DUP1", SEL_DEPOSIT, "EQ", ("ref", "deposit"), "JUMPI",
+        "DUP1", SEL_ACCUMULATE, "EQ", ("ref", "accumulate"), "JUMPI",
+        "DUP1", SEL_CLAIM, "EQ", ("ref", "claim"), "JUMPI",
+        0, 0, "REVERT",
+        # deposit(leaf): root = sha256(leaf ++ zero_hashes[1]); total += value
+        ("label", "deposit"), "POP",
+        4, "CALLDATALOAD", 0, "MSTORE", ("push2", ZERO_HASH_SLOT + 1), "SLOAD", 32, "MSTORE",
+        *_call_pre(2, (0, 64), (64, 32)), "POP",
+        64, "MLOAD", ROOT_SLOT, "SSTORE",
+        "CALLVALUE", TOTAL_SLOT, "SLOAD", "ADD", TOTAL_SLOT, "SSTORE", "STOP",
+        # accumulate(e): A = A ** e mod N
+        ("label", "accumulate"), "POP",
+        *_modexp_tokens([ACC_SLOT, "SLOAD"], [4, "CALLDATALOAD"], [N_SLOT, "SLOAD"]),
+        ACC_SLOT, "SSTORE", "STOP",
+        # claim(preimage): pay the balance out if sha256(preimage) == root
+        ("label", "claim"), "POP",
+        4, "CALLDATALOAD", 0, "MSTORE",
+        *_call_pre(2, (0, 32), (32, 32)), "POP",
+        32, "MLOAD", ROOT_SLOT, "SLOAD", "EQ", ("ref", "pay"), "JUMPI",
+        0, 0, "REVERT",
+        ("label", "pay"),
+        0, 0, 0, 0, "SELFBALANCE", "CALLER", GAS, "CALL", "POP", "STOP",
+    )
+
+
+def _constructor(runtime_len: int, runtime_off: int):
+    return [
+        "CALLER", 0, "SSTORE",  # owner
+        # zero-hash ladder: zero_hashes[i+1] = sha256(zh[i] ++ zh[i]), from
+        # a written zero_hashes[0] (an unwritten slot reads symbolic)
+        0, ("push2", ZERO_HASH_SLOT), "SSTORE",
+        0,
+        ("label", "ladder"),
+        "DUP1", ("push2", ZERO_HASH_SLOT), "ADD", "SLOAD",
+        "DUP1", 0, "MSTORE", 32, "MSTORE",
+        *_call_pre(2, (0, 64), (64, 32)), "POP",
+        64, "MLOAD", "DUP2", 1, "ADD", ("push2", ZERO_HASH_SLOT), "ADD", "SSTORE",
+        1, "ADD", "DUP1", LEVELS, "GT", ("ref", "ladder"), "JUMPI",
+        "POP",
+        # RSA accumulator: A = (g ** e1 mod N) ** e2 mod N
+        ("push32", RSA_N), N_SLOT, "SSTORE",
+        *_modexp_tokens([("push32", RSA_G)], [("push32", RSA_E1)], [("push32", RSA_N)]),
+        ACC_SLOT, "SSTORE",
+        *_modexp_tokens([ACC_SLOT, "SLOAD"], [RSA_E2], [N_SLOT, "SLOAD"], header=False),
+        ACC_SLOT, "SSTORE",
+        # return the runtime image appended to this code (the solc shape)
+        ("push2", runtime_len), "DUP1", ("push2", runtime_off), 0, "CODECOPY",
+        0, "RETURN",
+    ]
+
+
+def precompiles_creation() -> bytes:
+    runtime = precompiles_runtime()
+    ctor_len = len(_assemble(*_constructor(0, 0)))  # fixed-width pushes
+    return _assemble(*_constructor(len(runtime), ctor_len)) + runtime
+
+
+def precompiles_files():
+    return (os.path.join(FIXTURE_DIR, "precompiles.bin"),
+            os.path.join(FIXTURE_DIR, "precompiles.bin-runtime"))
+
+
+def _write_fixture():
+    creation_p, runtime_p = precompiles_files()
+    with open(creation_p, "w") as fh:
+        fh.write(precompiles_creation().hex())
+    with open(runtime_p, "w") as fh:
+        fh.write(precompiles_runtime().hex())
+
+
+# ---------------------------------------------------------------------------
+# the pinned JAX reports of the full-width runs
+# ---------------------------------------------------------------------------
+
+REALWORLD = [("Eip1167Proxy", "eip1167proxy"), ("Erc20Full", "erc20full"),
+             ("Erc721", "erc721"), ("Multisig2of3", "multisig2of3")]
+CONFIG4 = ["Caller", "Router", "Vault"]
+COVERAGE_KEYS = ("lanes", "surviving_paths", "dropped_forks", "killed_infeasible",
+                 "lanes_errored", "instruction_coverage_pct")
+
+
+def read_hex(path):
+    with open(path) as fh:
+        return bytes.fromhex(fh.read().strip().removeprefix("0x"))
+
+
+def realworld_system():
+    return [(n, read_hex(os.path.join(HERE, "fixtures", "realworld", f"{f}.bin-runtime")))
+            for n, f in REALWORLD]
+
+
+def config4_system():
+    d = os.path.join(HERE, "fixtures", "config4")
+    return [(n, read_hex(os.path.join(d, f"{n.lower()}.bin")),
+             read_hex(os.path.join(d, f"{n.lower()}.bin-runtime"))) for n in CONFIG4]
+
+
+def wrapper_doc(report) -> dict:
+    """The report fields a full-width wrapper run is held to."""
+    return {"issues": sorted(
+        ({"contract": i.contract, "swc-id": i.swc_id, "address": i.address,
+          "title": i.title, "severity": i.severity} for i in report.issues),
+        key=lambda d: (d["contract"], d["swc-id"], d["address"], d["title"])),
+        "coverage": {k: report.coverage.get(k) for k in COVERAGE_KEYS}}
+
+
+def _pin_cli(name, argv):
+    import subprocess
+
+    out = subprocess.run([sys.executable, "-m", "mythril_tpu", "analyze", *argv, "-o", "json"],
+                         cwd=ROOT, capture_output=True, text=True, check=True).stdout
+    with open(os.path.join(FIXTURE_DIR, f"{name}.json"), "w") as fh:
+        json.dump(json.loads(out), fh, indent=1, sort_keys=True)
+
+
+def _pin_wrapper(name):
+    sys.path.insert(0, ROOT)
+    import mythril_tpu  # noqa: F401
+    from mythril_tpu.analysis import SymExecWrapper, fire_lasers
+    from mythril_tpu.config import DEFAULT_LIMITS
+
+    kw = dict(limits=DEFAULT_LIMITS, lanes_per_contract=64, max_steps=512,
+              transaction_count=2)
+    if name == "config4_default":
+        system = config4_system()
+        sym = SymExecWrapper([r for _, _, r in system], contract_names=[n for n, _, _ in system],
+                             creation_bytecodes=[c for _, c, _ in system], **kw)
+    else:
+        system = realworld_system()
+        sym = SymExecWrapper([c for _, c in system], contract_names=[n for n, _ in system],
+                             **kw)
+    with open(os.path.join(FIXTURE_DIR, f"{name}.json"), "w") as fh:
+        json.dump(wrapper_doc(fire_lasers(sym)), fh, indent=1, sort_keys=True)
+
+
+def main(names):
+    """Pin the named reports (all of them by default), each in its own
+    process so they run side by side."""
+    import subprocess
+
+    creation_p, runtime_p = precompiles_files()
+    rw = os.path.join("tests", "fixtures", "realworld", "multisig2of3.bin-runtime")
+    cli = {
+        "multisig2of3_default": ["-f", rw, "-t", "2"],
+        "precompiles_default": ["-f", runtime_p, "--creation-code", creation_p],
+        "precompiles_test": ["-f", runtime_p, "--creation-code", creation_p,
+                             "--limits-profile", "test", "--lanes-per-contract", "16",
+                             "--max-steps", "384"],
+    }
+    if len(names) == 1 and names[0] in cli:
+        return _pin_cli(names[0], cli[names[0]])
+    if len(names) == 1:
+        return _pin_wrapper(names[0])
+    _write_fixture()
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), n])
+             for n in (names or [*cli, "config4_default", "realworld4_default"])]
+    if any(p.wait() for p in procs):
+        raise SystemExit(1)
+
+
+if __name__ == "__main__":
+    main(sys.argv[1:])
