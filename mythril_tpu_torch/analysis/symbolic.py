@@ -9,11 +9,12 @@ and after each transaction hands the detection modules an
 does on the JAX frontier.
 
 Supported: single-contract and batched analysis with call frames and
-precompiles, creation transactions (``creation_bytecodes``), ``bfs``
-strategy, spill/defer of starved forks, one fork block. Refused before
-any device work (``UnsupportedConfiguration``): other strategies, fork
-blocks, the berlin gas schedule, checkpoints, the instruction profiler
-and dynamic loading.
+precompiles, creation transactions (``creation_bytecodes``), the six
+fork strategies, fork blocks with host-seam rebalancing and in-loop
+migration, spill/defer of starved forks, the istanbul and berlin gas
+schedules, the instruction profiler, frontier checkpoints with resume,
+and laser plugins. Refused before any device work
+(``UnsupportedConfiguration``): dynamic loading.
 """
 
 from __future__ import annotations
@@ -40,6 +41,7 @@ from ..smt.tape import (HostNode, HostTape, TapeHostCache, extract_tape,
                         intern_node)
 from ..symbolic import SymSpec, between_txs, make_sym_frontier, sym_run
 from ..symbolic.engine import rebalance_parked
+from ..utils.checkpoint import load_frontier_resilient, save_frontier
 from ..support import UnsupportedConfiguration
 
 log = logging.getLogger(__name__)
@@ -240,7 +242,17 @@ class SymExecWrapper:
     runtime image for the ``transaction_count`` attacker message calls.
     The corpus holds the creation images at ``[0, C)`` and the runtime
     images at ``[C, 2C)``; ``create_timeout`` bounds the constructor run
-    alone."""
+    alone.
+
+    ``strategy`` picks the fork-admission policy, ``fork_block`` confines
+    fork copies to lane blocks (with ``spill``, starved lanes migrate
+    between blocks every ``migrate_every`` supersteps and at chunk
+    seams), ``enable_iprof`` keeps the executed-opcode profile
+    (:attr:`iprof`). ``checkpoint_dir`` saves ``frontier.npz`` at every
+    chunk seam; ``resume_from`` (such a file, written by this package or
+    the JAX one) restarts the run at the checkpoint's transaction and
+    step, and the transactions before it contribute no detection
+    context."""
 
     def __init__(
         self,
@@ -266,28 +278,15 @@ class SymExecWrapper:
         checkpoint_dir: Optional[str] = None,
         enable_iprof: bool = False,
         dyn_loader=None,
+        migrate_every: int = 8,
+        resume_from: Optional[str] = None,
     ):
         from ..plugin.loader import LaserPluginLoader
 
-        # every cut of this engine is refused here, before any device work
-        if checkpoint_dir is not None:
-            raise UnsupportedConfiguration("--checkpoint-dir is not supported by the "
-                                           "PyTorch engine yet")
-        if enable_iprof:
-            raise UnsupportedConfiguration("--enable-iprof is not supported by the "
-                                           "PyTorch engine yet")
+        # the one cut of this engine is refused here, before any device work
         if dyn_loader is not None:
             raise UnsupportedConfiguration("dynamic loading (--rpc) is not supported by "
                                            "the PyTorch engine yet")
-        if strategy not in ("bfs", "fifo"):
-            raise UnsupportedConfiguration(f"strategy {strategy!r} is not supported by the "
-                                           "PyTorch engine yet (only bfs)")
-        if fork_block != 0:
-            raise UnsupportedConfiguration("fork_block > 0 is not supported by the PyTorch "
-                                           "engine yet")
-        if limits.gas_schedule != "istanbul":
-            raise UnsupportedConfiguration(f"gas schedule {limits.gas_schedule!r} is not "
-                                           "supported by the PyTorch engine yet")
         names = list(contract_names or [f"contract_{i}" for i in range(len(bytecodes))])
         dev = resolve_device(device)
         self.device = dev
@@ -298,8 +297,20 @@ class SymExecWrapper:
         self.limits = limits
         self.spec = spec
         self.max_steps = max_steps
+        # reference strategy names -> fork-admission policies (the frontier
+        # is breadth-first by construction; the policy decides which forks
+        # to admit when slots run short)
+        self.fork_policy = {"bfs": "fifo", "dfs": "deep", "shallow": "shallow",
+                            "deep": "deep", "fifo": "fifo", "naive-random": "random",
+                            "random": "random", "weighted-random": "weighted",
+                            "weighted": "weighted", "coverage": "coverage",
+                            "beam": "beam"}[strategy]
         self.timed_out = False
+        self.checkpoint_dir = checkpoint_dir
         self.spill = spill
+        self.fork_block = fork_block
+        # in-loop migration only matters with blocked compaction and spill
+        self.migrate_every = migrate_every if spill else 0
         self._parked_end = 0
         self._rebalanced = 0
         self._chunk = max(1, deadline_chunk_steps)
@@ -334,12 +345,24 @@ class SymExecWrapper:
             b = sf.base
             sf = sf.replace(base=b.replace(
                 acct_code=torch.where(b.acct_code >= 0, b.acct_code + C, b.acct_code)))
+        # instruction profiler: per-lane histograms ride the frontier and
+        # are harvested (with the residual sidecar) at each tx boundary
+        self.enable_iprof = enable_iprof
+        self._iprof = np.zeros(256, dtype=np.int64)
+        if enable_iprof:
+            sf = sf.replace(base=sf.base.attach_iprof())
+        resume_tx = resume_steps = 0
+        if resume_from is not None:
+            sf, meta, _ = load_frontier_resilient(resume_from, sf)
+            resume_tx, resume_steps = int(meta.get("tx", 0)), int(meta.get("steps_done", 0))
         env = make_env(P, device=dev)
         self.tx_contexts: List[AnalysisContext] = []
 
-        def run_chunk(sf, n):
+        def run_chunk(sf, n, defer):
             sf, vis = sym_run(sf, env, self.corpus, spec, limits, max_steps=n,
-                              track_coverage=True, defer_starved=self.spill)
+                              fork_block=self.fork_block, track_coverage=True,
+                              fork_policy=self.fork_policy, defer_starved=defer,
+                              migrate_every=self.migrate_every)
             self._visited |= vis
             return sf
 
@@ -351,14 +374,15 @@ class SymExecWrapper:
             both = torch.stack([b.active, sf.fork_req, b.running]).cpu().numpy()
             return both[0], both[1], both[2]
 
-        def explore(sf):
-            """One transaction's exploration, chunked (the JAX wrapper's
-            spill/deadline path: chunk, chunk//4 and tail sizes). Without
-            spill and deadline the whole budget is one call, as in JAX."""
-            if self._deadline_at is None and not self.spill:
+        def explore(sf, steps_done=0):
+            """One transaction's exploration from ``steps_done``, chunked
+            (the JAX wrapper's spill/deadline/checkpoint path: chunk,
+            chunk//4 and tail sizes). Without spill, deadline and
+            checkpoints the whole budget is one call, as in JAX."""
+            if (self._deadline_at is None and self.checkpoint_dir is None
+                    and not self.spill):
                 with obs_trace.span("superstep", tx=self._cur_tx, steps=max_steps):
-                    return run_chunk(sf, max_steps)
-            steps_done = 0
+                    return run_chunk(sf, max_steps, False)
             sec_per_step = 0.0
             q = max(1, self._chunk // 4)
             while steps_done < max_steps:
@@ -372,15 +396,17 @@ class SymExecWrapper:
                         n = q
                 with obs_trace.timer("superstep", tx=self._cur_tx, steps=n,
                                      done=steps_done) as sp:
-                    sf = run_chunk(sf, n)
+                    sf = run_chunk(sf, n, self.spill)
                 sec_per_step = max(sec_per_step, sp.elapsed / n)
                 obs_metrics.REGISTRY.counter("engine_supersteps_total").inc(n)
                 steps_done += n
                 act_h, freq_h, run_h = seam(sf)
                 if self.spill:
-                    sf, moved = rebalance_parked(sf)
+                    sf, moved = rebalance_parked(sf, self.fork_block, act_h, freq_h)
                     self._rebalanced += moved
                 self.plugin_loader.fire("on_chunk", sf, steps_done)
+                if self.checkpoint_dir is not None:
+                    self._save_checkpoint(sf, steps_done)
                 if not bool(run_h.any()):
                     break
                 if (self._deadline_at is not None
@@ -398,11 +424,11 @@ class SymExecWrapper:
                     if self.timed_out or (self._deadline_at is not None
                                           and time.monotonic() >= self._deadline_at):
                         break
-                    sf, moved = rebalance_parked(sf)
+                    sf, moved = rebalance_parked(sf, self.fork_block, act_h, freq_h)
                     self._rebalanced += moved
                     with obs_trace.span("superstep", tx=self._cur_tx,
                                         steps=self._chunk, drain=True):
-                        sf = run_chunk(sf, self._chunk)
+                        sf = run_chunk(sf, self._chunk, True)
                     act_h, freq_h, _ = seam(sf)
                     parked = freq_h & act_h
                 self._parked_end += int(parked.sum())
@@ -410,7 +436,7 @@ class SymExecWrapper:
 
         def run_one_tx(sf, is_last: bool, handoff_kw=None):
             self.plugin_loader.fire("on_tx_start", self._cur_tx, sf)
-            sf = explore(sf)
+            sf = explore(sf, resume_steps if self._cur_tx == resume_tx else 0)
             with obs_trace.span("harvest", tx=self._cur_tx):
                 host = sf.to_numpy()
                 trap_counts = _count_traps(host.base.err_code)
@@ -421,6 +447,13 @@ class SymExecWrapper:
                     trap_counts=trap_counts, timed_out=self.timed_out,
                 )
                 self.tx_contexts.append(ctx)
+                if self.enable_iprof:
+                    # every lane's row plus the sidecar of orphaned rows
+                    self._iprof += (host.base.op_hist.sum(0, dtype=np.int64)
+                                    + host.base.op_resid)
+                    b = sf.base
+                    sf = sf.replace(base=b.replace(op_hist=torch.zeros_like(b.op_hist),
+                                                   op_resid=torch.zeros_like(b.op_resid)))
             self.plugin_loader.fire("on_tx_end", ctx)
             if not is_last:
                 kw = dict(handoff_kw or {})
@@ -432,7 +465,7 @@ class SymExecWrapper:
 
         self._cur_tx = 0
         self.plugin_loader.fire("initialize", self)
-        if with_creation:
+        if with_creation and resume_tx == 0:
             # --create-timeout narrows the deadline for the constructor run
             # only; hitting it must not cancel the message-call phase
             outer_deadline = self._deadline_at
@@ -449,7 +482,9 @@ class SymExecWrapper:
                 if self.timed_out and (outer_deadline is None
                                        or time.monotonic() < outer_deadline):
                     self.timed_out = False
-        for t in range(transaction_count):
+        self._cur_tx = max(self._cur_tx, resume_tx)
+        first_msg = 1 if with_creation else 0
+        for t in range(self._cur_tx - first_msg, transaction_count):
             if self.timed_out:
                 break
             if not ci.host_bool(torch.any(sf.base.active)):
@@ -460,6 +495,34 @@ class SymExecWrapper:
         self.ctx = self.tx_contexts[-1]
         self.visited = self._visited.cpu().numpy()
         self.plugin_loader.fire("on_run_end", self)
+
+    def _save_checkpoint(self, sf, steps_done: int) -> None:
+        import os
+
+        os.makedirs(self.checkpoint_dir, exist_ok=True)
+        save_frontier(os.path.join(self.checkpoint_dir, "frontier.npz"), sf,
+                      {"tx": self._cur_tx, "steps_done": steps_done, "dynld_loaded": []})
+
+    @property
+    def iprof(self) -> Dict[str, int]:
+        """Executed-instruction counts by mnemonic, most-executed first.
+        Empty unless ``enable_iprof=True``."""
+        from ..disassembler.opcodes import name_of
+
+        out = {name_of(op): int(n) for op, n in enumerate(self._iprof) if n}
+        return dict(sorted(out.items(), key=lambda kv: -kv[1]))
+
+    def iprof_table(self) -> str:
+        """The profile as text: one row per opcode with count and share,
+        totals last."""
+        prof = self.iprof
+        total = sum(prof.values())
+        lines = ["Instruction profile (executed instances):",
+                 f"{'OPCODE':<14}{'COUNT':>12}{'SHARE':>9}"]
+        for name, n in prof.items():
+            lines.append(f"{name:<14}{n:>12}{100.0 * n / total:>8.2f}%")
+        lines.append(f"{'TOTAL':<14}{total:>12}{100.0:>8.2f}%")
+        return "\n".join(lines)
 
     def instruction_coverage(self) -> Dict[str, float]:
         """Per-contract % of real instructions reached."""

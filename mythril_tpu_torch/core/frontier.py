@@ -269,8 +269,10 @@ class Frontier(TensorStruct):
     selfdestructed: torch.Tensor  # bool[P]
     # --- metrics ---
     n_steps: torch.Tensor  # i32[P]
-    # the instruction profiler (--enable-iprof) is not supported by this
-    # package; the fields exist for parity with the JAX frontier
+    # the instruction profiler (--enable-iprof): per-lane executed-opcode
+    # histograms i32[P, 256] and the residual sidecar i32[256] that takes
+    # the rows slot recycling or lane movement would orphan; None when off
+    # (attach with `attach_iprof`)
     op_hist: Optional[torch.Tensor] = None
     op_resid: Optional[torch.Tensor] = None
 
@@ -282,6 +284,12 @@ class Frontier(TensorStruct):
     @property
     def n_lanes(self) -> int:
         return self.pc.shape[0]
+
+    def attach_iprof(self) -> "Frontier":
+        """Enable the instruction profiler (zeroed histograms + sidecar)."""
+        return self.replace(
+            op_hist=torch.zeros((self.n_lanes, 256), dtype=torch.int32, device=self.pc.device),
+            op_resid=torch.zeros(256, dtype=torch.int32, device=self.pc.device))
 
     @property
     def device(self):

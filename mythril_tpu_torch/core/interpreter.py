@@ -91,6 +91,8 @@ class Tables:
         self.D_SP = t(oc.STACK_OUT - oc.STACK_IN, I32)
         self.GAS_MIN = t(oc.GAS_MIN, I64)
         self.GAS_MAX = t(oc.GAS_MAX, I64)
+        self.GAS_MIN_BERLIN = t(oc.GAS_MIN_BERLIN, I64)
+        self.GAS_MAX_BERLIN = t(oc.GAS_MAX_BERLIN, I64)
         self.PUSH_WIDTH = t(oc.PUSH_WIDTH, I32)
         self.IS_VALID = t(oc.IS_VALID, torch.bool)
         self.CLASS = t(CLASS_TABLE, I32)
@@ -681,9 +683,8 @@ def host_bool(t: torch.Tensor) -> bool:
 
 def prologue(f: Frontier, corpus: Corpus, berlin: bool = False):
     """Fetch + validate the next instruction for every running lane.
-    Returns ``(f, op, run, old_pc)``."""
-    if berlin:
-        raise NotImplementedError("the berlin gas schedule is not supported by this engine")
+    Returns ``(f, op, run, old_pc)``. ``berlin`` charges the EIP-2929
+    WARM base costs; the symbolic engine adds the cold surcharges."""
     tb = _tab(f.pc)
     running = f.running
     MC = corpus.code.shape[1]
@@ -706,9 +707,10 @@ def prologue(f: Frontier, corpus: Corpus, berlin: bool = False):
     stack_bad = running & valid & ((f.sp - f.sp_base < sin) | (f.sp - sin + sout > f.max_stack))
     f = f.trap(invalid, Trap.INVALID_OP).trap(stack_bad, Trap.STACK)
     run = running & ~invalid & ~stack_bad
+    gmin, gmax = (tb.GAS_MIN_BERLIN, tb.GAS_MAX_BERLIN) if berlin else (tb.GAS_MIN, tb.GAS_MAX)
     f = f.replace(
-        gas_min=f.gas_min + torch.where(run, tb.GAS_MIN[opl], 0),
-        gas_max=f.gas_max + torch.where(run, tb.GAS_MAX[opl], 0),
+        gas_min=f.gas_min + torch.where(run, gmin[opl], 0),
+        gas_max=f.gas_max + torch.where(run, gmax[opl], 0),
     )
     return f, op, run, f.pc
 
@@ -760,6 +762,13 @@ def dispatch(f: Frontier, env: Env, corpus: Corpus, op, run, old_pc,
     return f.replace(stack=stack, sp=sp)
 
 
+def hist_add(hist, op, delta):
+    """hist[P, 256] + delta[P] at column op[P] (a new tensor)."""
+    out = hist.clone()
+    out[_lanes(op), op.long()] += delta
+    return out
+
+
 def epilogue(f: Frontier, op, run, old_pc) -> Frontier:
     """Default pc advance + out-of-gas trap after the handlers ran."""
     tb = _tab(op)
@@ -772,6 +781,8 @@ def epilogue(f: Frontier, op, run, old_pc) -> Frontier:
         pc_hold=torch.zeros_like(f.pc_hold),
         n_steps=f.n_steps + run.to(I32),
     )
+    if f.op_hist is not None:  # iprof: one masked histogram update per step
+        f = f.replace(op_hist=hist_add(f.op_hist, op, run.to(I32)))
     oog = run & (f.gas_min > f.gas_limit)
     return f.trap(oog, Trap.OOG)
 

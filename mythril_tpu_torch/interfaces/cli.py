@@ -3,11 +3,14 @@
 Commands: ``analyze`` (``a``), ``list-detectors``, ``version``. The flags
 of ``analyze`` are the JAX package's for what this engine runs, plus
 ``--device {cuda,cpu}`` (default ``cuda``). ``--creation-code PATH``
-runs the constructor transaction first. Flags of parts that are not
-ported yet (corpus campaigns, checkpoints, plugins, the profiler, RPC
-loading, strategies other than bfs, the test shape profile's call depth)
-are accepted by the parser and refused with an error before any device
-work.
+runs the constructor transaction first; ``--strategy`` takes the six
+fork strategies; ``--enable-iprof`` prints the executed-opcode profile
+on stderr after the report; ``--plugin-dir DIR`` loads external plugins.
+``--checkpoint-dir`` is the campaign's checkpoint directory, as in the
+JAX package: single-contract ``analyze`` writes no checkpoint there.
+Flags of parts that are not ported yet (corpus
+campaigns, RPC loading, the call-depth limit) are accepted by the parser
+and refused with an error before any device work.
 
 Run as ``python -m mythril_tpu_torch <command> ...``.
 """
@@ -61,7 +64,10 @@ def create_parser() -> argparse.ArgumentParser:
     a.add_argument("--strategy", default="bfs",
                    choices=["bfs", "dfs", "naive-random", "weighted-random",
                             "coverage", "beam"],
-                   help="fork-admission policy (only bfs is supported here)")
+                   help="fork-admission policy when frontier slots run short: "
+                        "bfs=fifo, dfs=deepest-first, naive-random=unbiased hash "
+                        "order, weighted-random=depth-weighted hash, "
+                        "coverage=unvisited-target first, beam=capped shallowest-first")
     a.add_argument("--limits-profile", choices=["default", "test"], default="default",
                    help="frontier shape caps ('test' = the small CI shapes)")
     a.add_argument("--concrete-storage", action="store_true",
@@ -70,29 +76,30 @@ def create_parser() -> argparse.ArgumentParser:
                    help="model unknown storage as fully symbolic (the default)")
     a.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                    help="where the engine runs (default: the CUDA card)")
+    a.add_argument("--enable-iprof", action="store_true",
+                   help="print a per-opcode executed-instruction profile after the report")
+    a.add_argument("--plugin-dir", metavar="DIR",
+                   help="load external plugins (detection modules and/or laser "
+                        "plugins) from every *.py in DIR")
+    a.add_argument("--checkpoint-dir", metavar="DIR",
+                   help="campaign checkpoint directory (single-contract analyze "
+                        "writes none)")
     # accepted so that they can be refused with a clear message
-    for flag, meta in (("--corpus", "DIR"),
-                       ("--checkpoint-dir", "DIR"), ("--plugin-dir", "DIR"),
-                       ("-a", "ADDRESS"), ("--rpc", "URI"),
+    for flag, meta in (("--corpus", "DIR"), ("-a", "ADDRESS"), ("--rpc", "URI"),
                        ("--call-depth-limit", "N")):
         a.add_argument(flag, metavar=meta, default=None, help="not supported by this engine")
-    a.add_argument("--enable-iprof", action="store_true",
-                   help="not supported by this engine")
     ld = sub.add_parser("list-detectors", help="list registered detection modules")
     ld.add_argument("--plugin-dir", metavar="DIR", default=None,
-                    help="not supported by this engine")
+                    help="also list the detection modules of the plugins in DIR")
     sub.add_parser("version", help="print version")
     return p
 
 
 _CUT_FLAGS = (
     ("corpus", "--corpus (campaigns)"),
-    ("checkpoint_dir", "--checkpoint-dir"),
-    ("plugin_dir", "--plugin-dir"),
     ("a", "-a/--address"),
     ("rpc", "--rpc"),
     ("call_depth_limit", "--call-depth-limit"),
-    ("enable_iprof", "--enable-iprof"),
 )
 
 
@@ -102,10 +109,17 @@ def _refuse_cuts(args) -> None:
             print(f"error: {what} is not supported by the PyTorch engine yet",
                   file=sys.stderr)
             raise SystemExit(2)
-    if getattr(args, "strategy", "bfs") != "bfs":
-        print(f"error: --strategy {args.strategy} is not supported by the PyTorch "
-              "engine yet (only bfs)", file=sys.stderr)
-        raise SystemExit(2)
+
+
+def _discover_plugins(plugin_dir):
+    """Outer plugin discovery (entry points + optional directory); errors
+    warn on stderr rather than aborting the analysis."""
+    from ..plugin import discover
+
+    disc = discover(plugin_dir=plugin_dir)
+    for name, err in disc.errors.items():
+        print(f"warning: plugin {name}: {err}", file=sys.stderr)
+    return disc.laser_plugins
 
 
 def _limits_for(args):
@@ -141,6 +155,9 @@ def exec_analyze(args) -> int:
               file=sys.stderr)
         raise SystemExit(2)
     _refuse_cuts(args)
+    if args.checkpoint_dir:
+        print("warning: --checkpoint-dir has no effect on single-contract analyze "
+              "(it is the campaign's checkpoint directory)", file=sys.stderr)
     from ..mythril import MythrilAnalyzer, MythrilConfig
     from ..symbolic import SymSpec
 
@@ -159,6 +176,8 @@ def exec_analyze(args) -> int:
         create_timeout=args.create_timeout,
         strategy=args.strategy,
         spec=SymSpec(storage=not args.concrete_storage),
+        enable_iprof=args.enable_iprof,
+        plugins=tuple(_discover_plugins(args.plugin_dir)),
         device=args.device,
     )
     analyzer = MythrilAnalyzer(contracts, cfg)
@@ -172,16 +191,17 @@ def exec_analyze(args) -> int:
         print(report.as_markdown())
     else:
         print(report.as_text())
+    if args.enable_iprof:
+        # a separate channel: the report formats stay the same with or
+        # without the profiler
+        print(analyzer.sym.iprof_table(), file=sys.stderr)
     return 0
 
 
 def exec_list_detectors(args) -> int:
-    if getattr(args, "plugin_dir", None):
-        print("error: --plugin-dir is not supported by the PyTorch engine yet",
-              file=sys.stderr)
-        raise SystemExit(2)
     from ..analysis import ModuleLoader
 
+    _discover_plugins(getattr(args, "plugin_dir", None))
     for m in ModuleLoader().get_detection_modules():
         print(f"{m.name} (SWC-{m.swc_id}): {m.description}")
     return 0

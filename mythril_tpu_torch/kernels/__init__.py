@@ -6,7 +6,15 @@ K2     ``csrc/keccak256.cu``       ``keccak256`` — SHA3 of per-lane bytes
 K3     ``csrc/tape_append.cu``     ``tape_append`` — hash-consed tape append
 K4     ``csrc/sha256.cu``          ``sha256`` — SHA-256 (precompile 0x2)
 K5     ``csrc/u256_modexp.cu``     ``modexp_u256`` — MODEXP (precompile 0x5)
+K6     ``csrc/propagate_sweep.cu`` ``propagate_sweep`` — feasibility sweep
+K7     ``csrc/fork_plan.cu``       ``fork_plan`` — policy-keyed fork planning
+K8     ``csrc/u256_mul.cu``        ``mul_u256`` — MUL / wide product
+K9     ``csrc/u256_mulmod_exp.cu`` ``mod_wide_u256``, ``exp_u256`` — ADDMOD /
+                                   MULMOD remainder, EXP
 =====  ==========================  =========================================
+
+``csrc/u256.cuh`` holds the limb helpers and the Barrett reduction that
+K5, K6, K8 and K9 share.
 
 Each source has a plain C interface. :func:`build` compiles them with
 ``nvcc`` — one process per source, all started together — into shared
@@ -19,7 +27,7 @@ outputs with ``torch.empty``, launches on PyTorch's current stream, raises
 if the launch returned a CUDA error, and adds one to its ``launches``
 counter. The plain PyTorch versions live beside their callers
 (``ops/u256.py``, ``ops/keccak.py``, ``ops/sha256.py``,
-``symbolic/engine.py``); those
+``symbolic/engine.py``, ``symbolic/propagate.py``); those
 callers route a CPU tensor to the plain version and a CUDA tensor here.
 """
 
@@ -43,7 +51,13 @@ SOURCES = {
     "tape_append": "tape_append.cu",
     "sha256": "sha256.cu",
     "u256_modexp": "u256_modexp.cu",
+    "propagate_sweep": "propagate_sweep.cu",
+    "fork_plan": "fork_plan.cu",
+    "u256_mul": "u256_mul.cu",
+    "u256_mulmod_exp": "u256_mulmod_exp.cu",
 }
+# largest dynamic shared memory one block may opt into on sm_90 (bytes)
+MAX_SMEM = 232448
 NVCC_FLAGS = ["-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
 
@@ -97,9 +111,17 @@ def build(verbose: bool = False) -> float:
         libs["tape_append"].tape_append.argtypes = [vp] * 13 + [ci, ci, vp]
         libs["sha256"].sha256.argtypes = [vp, vp, vp, ci, ci, vp]
         libs["u256_modexp"].modexp_u256.argtypes = [vp, vp, vp, vp, ci, vp]
+        libs["propagate_sweep"].propagate_sweep.argtypes = [vp] * 14 + [ci] * 3 + [vp]
+        libs["fork_plan"].fork_plan.argtypes = [vp] * 13 + [ci] * 8 + [vp]
+        libs["u256_mul"].u256_mul.argtypes = [vp, vp, vp, ci, ci, vp]
+        libs["u256_mulmod_exp"].u256_mod_wide.argtypes = [vp, vp, vp, ci, vp]
+        libs["u256_mulmod_exp"].u256_exp.argtypes = [vp, vp, vp, ci, vp]
         for lib, fn in (("u256_divmod", "divmod_u256"), ("keccak256", "keccak256"),
                         ("tape_append", "tape_append"), ("sha256", "sha256"),
-                        ("u256_modexp", "modexp_u256")):
+                        ("u256_modexp", "modexp_u256"), ("propagate_sweep", "propagate_sweep"),
+                        ("fork_plan", "fork_plan"),
+                        ("u256_mul", "u256_mul"), ("u256_mulmod_exp", "u256_mod_wide"),
+                        ("u256_mulmod_exp", "u256_exp")):
             getattr(libs[lib], fn).restype = ci
         _LIBS.update(libs)
         BUILD_SECONDS = time.monotonic() - t0
@@ -237,8 +259,150 @@ def modexp_u256(base: torch.Tensor, e: torch.Tensor, m: torch.Tensor):
     return out
 
 
+def _check_words(ts, name, shape, dev):
+    for t, what in ts:
+        _check(t, f"{name} {what}", torch.int64, shape, dev)
+    if shape[-1] != 8:
+        raise ValueError(f"{name}: last dim must be 8 limbs")
+
+
+_MUL_MODES = {"low": 0, "wide": 1}
+
+
+@_launch_counter
+def mul_u256(a: torch.Tensor, b: torch.Tensor, mode: str = "low"):
+    """K8 on int64 carrier words ``[..., 8]``: ``mode`` "low" -> the low
+    product ``[..., 8]``, "wide" -> the 512-bit product ``[..., 16]``."""
+    dev = a.device
+    _check_words(((a, "a"), (b, "b")), "mul_u256", a.shape, dev)
+    lead = a.shape[:-1]
+    out = torch.empty(lead + (8 if mode == "low" else 16,), dtype=torch.int64, device=dev)
+    err = _lib("u256_mul").u256_mul(a.data_ptr(), b.data_ptr(), out.data_ptr(),
+                                    a.numel() // 8, _MUL_MODES[mode], _stream(dev))
+    _raise_on(err, "mul_u256")
+    mul_u256.launches += 1
+    return out
+
+
+@_launch_counter
+def mod_wide_u256(x: torch.Tensor, m: torch.Tensor):
+    """K9: int64 carrier ``x[..., 16]`` (a 512-bit value) mod ``m[..., 8]``;
+    m == 0 gives 0."""
+    dev = x.device
+    _check_words(((m, "m"),), "mod_wide_u256", m.shape, dev)
+    _check(x, "mod_wide_u256 x", torch.int64, m.shape[:-1] + (16,), dev)
+    out = torch.empty_like(m)
+    err = _lib("u256_mulmod_exp").u256_mod_wide(x.data_ptr(), m.data_ptr(), out.data_ptr(),
+                                                m.numel() // 8, _stream(dev))
+    _raise_on(err, "mod_wide_u256")
+    mod_wide_u256.launches += 1
+    return out
+
+
+@_launch_counter
+def exp_u256(base: torch.Tensor, e: torch.Tensor):
+    """K9: int64 carrier words ``[..., 8]`` -> base ** e mod 2^256."""
+    dev = base.device
+    _check_words(((base, "base"), (e, "e")), "exp_u256", base.shape, dev)
+    out = torch.empty_like(base)
+    err = _lib("u256_mulmod_exp").u256_exp(base.data_ptr(), e.data_ptr(), out.data_ptr(),
+                                           base.numel() // 8, _stream(dev))
+    _raise_on(err, "exp_u256")
+    exp_u256.launches += 1
+    return out
+
+
+@_launch_counter
+def propagate_sweep(tape_op, tape_a, tape_b, tape_imm, tape_len, prop_len,
+                    iv_lo, iv_hi, kb_m, kb_v, con_node, con_sign, con_len):
+    """K6, in place on ``prop_len`` and the four domain tensors. Returns
+    the per-lane infeasible flags ``bool[P]``."""
+    dev = tape_op.device
+    P, T = tape_op.shape
+    C = con_node.shape[1]
+    for t, what, dt, shp in (
+            (tape_op, "tape_op", torch.int32, (P, T)),
+            (tape_a, "tape_a", torch.int32, (P, T)),
+            (tape_b, "tape_b", torch.int32, (P, T)),
+            (tape_imm, "tape_imm", torch.int64, (P, T, 8)),
+            (tape_len, "tape_len", torch.int32, (P,)),
+            (prop_len, "prop_len", torch.int32, (P,)),
+            (iv_lo, "iv_lo", torch.int64, (P, T, 8)),
+            (iv_hi, "iv_hi", torch.int64, (P, T, 8)),
+            (kb_m, "kb_m", torch.int64, (P, T, 8)),
+            (kb_v, "kb_v", torch.int64, (P, T, 8)),
+            (con_node, "con_node", torch.int32, (P, C)),
+            (con_sign, "con_sign", torch.bool, (P, C)),
+            (con_len, "con_len", torch.int32, (P,))):
+        _check(t, f"propagate_sweep {what}", dt, shp, dev)
+    infeasible = torch.empty(P, dtype=torch.bool, device=dev)
+    err = _lib("propagate_sweep").propagate_sweep(
+        tape_op.data_ptr(), tape_a.data_ptr(), tape_b.data_ptr(), tape_imm.data_ptr(),
+        tape_len.data_ptr(), prop_len.data_ptr(), iv_lo.data_ptr(), iv_hi.data_ptr(),
+        kb_m.data_ptr(), kb_v.data_ptr(), con_node.data_ptr(), con_sign.data_ptr(),
+        con_len.data_ptr(), infeasible.data_ptr(), P, T, C, _stream(dev))
+    _raise_on(err, "propagate_sweep")
+    propagate_sweep.launches += 1
+    return infeasible
+
+
+# fork policies as K7 numbers them (csrc/fork_plan.cu)
+FORK_POLICIES = ("fifo", "shallow", "deep", "random", "weighted", "coverage", "beam")
+
+
+def fork_plan_smem_bytes(B: int) -> int:
+    """Dynamic shared memory K7 needs for a fork block of B lanes."""
+    Bp = 1 << max(0, (B - 1).bit_length())
+    return 4 * (Bp + 2 * B + min(Bp, 1024))
+
+
+@_launch_counter
+def fork_plan(active, fork_req, con_len, fork_dest, contract_id, pc, sp, dropped_forks,
+              fork_cslot, call_enum, visited, *, block: int, policy: str, n_con: int,
+              n_stack: int, defer: bool):
+    """K7: the fork map and the per-lane fix-ups of ``expand_forks`` for
+    every fork block of ``block`` lanes. ``visited`` is the coverage
+    bitmap ``bool[C, MC]`` or None. Returns (``int32[9, P]``: src, slot,
+    pc, sp, con_len, last sign index, stack slot, call_enum, dropped;
+    ``bool[4, P]``: is_copy, fork_req, starved, backward copy)."""
+    dev = active.device
+    P = active.shape[0]
+    if block <= 0 or P % block:
+        raise ValueError(f"fork_plan: fork block {block} must divide P={P}")
+    if fork_plan_smem_bytes(block) > MAX_SMEM:
+        raise ValueError(f"fork_plan: a fork block of {block} lanes needs "
+                         f"{fork_plan_smem_bytes(block)} bytes of shared memory, more "
+                         f"than the {MAX_SMEM} one block can hold")
+    _check(active, "fork_plan active", torch.bool, (P,), dev)
+    _check(fork_req, "fork_plan fork_req", torch.bool, (P,), dev)
+    for t, what in ((con_len, "con_len"), (fork_dest, "fork_dest"),
+                    (contract_id, "contract_id"), (pc, "pc"), (sp, "sp"),
+                    (dropped_forks, "dropped_forks"), (fork_cslot, "fork_cslot"),
+                    (call_enum, "call_enum")):
+        _check(t, f"fork_plan {what}", torch.int32, (P,), dev)
+    vc = vm = 0
+    vptr = None
+    if visited is not None:
+        vc, vm = visited.shape
+        _check(visited, "fork_plan visited", torch.bool, (vc, vm), dev)
+        vptr = visited.data_ptr()
+    out_i = torch.empty((9, P), dtype=torch.int32, device=dev)
+    out_b = torch.empty((4, P), dtype=torch.bool, device=dev)
+    err = _lib("fork_plan").fork_plan(
+        active.data_ptr(), fork_req.data_ptr(), con_len.data_ptr(), fork_dest.data_ptr(),
+        contract_id.data_ptr(), pc.data_ptr(), sp.data_ptr(), dropped_forks.data_ptr(),
+        fork_cslot.data_ptr(), call_enum.data_ptr(), vptr, out_i.data_ptr(),
+        out_b.data_ptr(), P, block, FORK_POLICIES.index(policy), n_con, n_stack, vc, vm,
+        int(defer), _stream(dev))
+    _raise_on(err, "fork_plan")
+    fork_plan.launches += 1
+    return out_i, out_b
+
+
 KERNELS = {"divmod_u256": divmod_u256, "keccak256": keccak256,
-           "tape_append": tape_append, "sha256": sha256, "modexp_u256": modexp_u256}
+           "tape_append": tape_append, "sha256": sha256, "modexp_u256": modexp_u256,
+           "propagate_sweep": propagate_sweep, "fork_plan": fork_plan,
+           "mul_u256": mul_u256, "mod_wide_u256": mod_wide_u256, "exp_u256": exp_u256}
 
 
 def reset_launch_counts():

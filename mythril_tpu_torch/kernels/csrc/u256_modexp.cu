@@ -17,88 +17,18 @@
 // Bound: operations. A product-reduce step is 190 32x32->64 multiply-
 // adds (64 + 81 + 45) plus shifts; a lane does bitlen(e) squarings and
 // popcount(e) multiplies, up to 512 for a 256-bit exponent. Limbs live
-// in small local arrays indexed at run time by the per-lane shift.
+// in small local arrays indexed at run time by the per-lane shift; the
+// limb helpers and the Barrett reduction are shared with K9 (u256.cuh).
 
-#include <cstdint>
-#include <cuda_runtime.h>
+#include "u256.cuh"
 
-// x (n limbs) << s into out (n_out limbs), s in [0, 255]
-__device__ void shl_bits(const uint32_t* x, int n, int s, uint32_t* out, int n_out) {
-  int q = s >> 5, r = s & 31;
-  for (int i = 0; i < n_out; ++i) {
-    int j = i - q;
-    uint32_t lo = (j >= 0 && j < n) ? x[j] : 0u;
-    uint32_t lo1 = (j - 1 >= 0 && j - 1 < n) ? x[j - 1] : 0u;
-    out[i] = r ? ((lo << r) | (lo1 >> (32 - r))) : lo;
-  }
-}
+using namespace u256;
 
-// x (n limbs) >> s into out (n_out limbs)
-__device__ void shr_bits(const uint32_t* x, int n, int s, uint32_t* out, int n_out) {
-  int q = s >> 5, r = s & 31;
-  for (int i = 0; i < n_out; ++i) {
-    int j = i + q;
-    uint32_t lo = (j < n) ? x[j] : 0u;
-    uint32_t hi = (j + 1 < n) ? x[j + 1] : 0u;
-    out[i] = r ? ((lo >> r) | (hi << (32 - r))) : lo;
-  }
-}
-
-// low n_out limbs of a (na) * b (nb)
-__device__ void mul_low(const uint32_t* a, int na, const uint32_t* b, int nb,
-                        uint32_t* out, int n_out) {
-  for (int i = 0; i < n_out; ++i) out[i] = 0u;
-  for (int i = 0; i < na && i < n_out; ++i) {
-    uint64_t carry = 0;
-    for (int j = 0; j < nb && i + j < n_out; ++j) {
-      uint64_t t = (uint64_t)a[i] * b[j] + out[i + j] + carry;
-      out[i + j] = (uint32_t)t;
-      carry = t >> 32;
-    }
-    if (i + nb < n_out) out[i + nb] = (uint32_t)carry;
-  }
-}
-
-// a >= b over n limbs
-__device__ bool gte_n(const uint32_t* a, const uint32_t* b, int n) {
-  for (int i = n - 1; i >= 0; --i) {
-    if (a[i] != b[i]) return a[i] > b[i];
-  }
-  return true;
-}
-
-// a -= b over n limbs (mod 2^(32n))
-__device__ void sub_n(uint32_t* a, const uint32_t* b, int n) {
-  uint64_t borrow = 0;
-  for (int i = 0; i < n; ++i) {
-    uint64_t t = (uint64_t)a[i] - b[i] - borrow;
-    a[i] = (uint32_t)t;
-    borrow = (t >> 63) & 1u;
-  }
-}
-
-struct Barrett {
-  uint32_t mn[9];  // normalized modulus, limb 8 = 0
-  uint32_t mu[9];  // floor(2^512 / m_n), up to 2^257
-  int s;
-};
-
-// r = a * b mod m, a and b 8 limbs, with a * b < m_n * 2^256 / 2^s
+// r = a * b mod m for 8-limb a below m (so a * b < m * 2^256)
 __device__ void mulmod(const Barrett& B, const uint32_t* a, const uint32_t* b, uint32_t* r) {
-  uint32_t x[16], xn[16], q1[9], q2[18], q3[9], qm[9];
+  uint32_t x[16];
   mul_low(a, 8, b, 8, x, 16);
-  shl_bits(x, 16, B.s, xn, 16);
-  shr_bits(xn, 16, 255, q1, 9);
-  mul_low(q1, 9, B.mu, 9, q2, 18);
-  shr_bits(q2, 18, 257, q3, 9);
-  mul_low(q3, 9, B.mn, 9, qm, 9);
-  uint32_t rr[9];
-  for (int i = 0; i < 9; ++i) rr[i] = xn[i];
-  sub_n(rr, qm, 9);  // exact: the true remainder estimate is < 3 m_n < 2^288
-  for (int k = 0; k < 2; ++k) {
-    if (gte_n(rr, B.mn, 9)) sub_n(rr, B.mn, 9);
-  }
-  shr_bits(rr, 9, B.s, r, 8);
+  barrett_reduce(B, x, r);
 }
 
 __global__ void modexp_kernel(const int64_t* __restrict__ base_in,
@@ -113,39 +43,19 @@ __global__ void modexp_kernel(const int64_t* __restrict__ base_in,
     e[i] = (uint32_t)e_in[8 * (int64_t)p + i];
     m[i] = (uint32_t)m_in[8 * (int64_t)p + i];
   }
-  int top = -1;
-  for (int i = 7; i >= 0 && top < 0; --i) {
-    if (m[i]) top = 32 * i + 31 - __clz(m[i]);
-  }
+  int top = top_bit8(m);
   if (top < 0) {  // m == 0
     for (int i = 0; i < 8; ++i) out[8 * (int64_t)p + i] = 0;
     return;
   }
   Barrett B;
-  B.s = 255 - top;
-  shl_bits(m, 8, B.s, B.mn, 8);
-  B.mn[8] = 0u;
-  // mu: quotient bits 257..0 of 2^512 / m_n; the remainder starts at 2^254
-  uint32_t rem[9] = {0, 0, 0, 0, 0, 0, 0, 0, 0};
-  rem[7] = 1u << 30;
-  for (int i = 0; i < 9; ++i) B.mu[i] = 0u;
-  for (int i = 257; i >= 0; --i) {
-    for (int k = 8; k > 0; --k) rem[k] = (rem[k] << 1) | (rem[k - 1] >> 31);
-    rem[0] <<= 1;
-    if (gte_n(rem, B.mn, 9)) {
-      sub_n(rem, B.mn, 9);
-      B.mu[i >> 5] |= 1u << (i & 31);
-    }
-  }
+  barrett_init(B, m, top);
   // accumulator: 1 mod m
   uint32_t acc[8] = {0, 0, 0, 0, 0, 0, 0, 0};
   bool m_is_one = (m[0] == 1u);
   for (int i = 1; i < 8; ++i) m_is_one = m_is_one && (m[i] == 0u);
   acc[0] = m_is_one ? 0u : 1u;
-  int etop = -1;
-  for (int i = 7; i >= 0 && etop < 0; --i) {
-    if (e[i]) etop = 32 * i + 31 - __clz(e[i]);
-  }
+  int etop = top_bit8(e);
   uint32_t t[8];
   for (int i = etop; i >= 0; --i) {
     mulmod(B, acc, acc, t);

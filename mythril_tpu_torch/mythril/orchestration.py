@@ -30,8 +30,9 @@ class MythrilConfig:
     execution_timeout: Optional[float] = None
     create_timeout: Optional[float] = None  # seconds for the creation tx
     parallel_solving: bool = False
-    strategy: str = "bfs"
-    plugins: tuple = ()
+    strategy: str = "bfs"                 # fork-admission policy (six strategies)
+    enable_iprof: bool = False            # per-opcode instruction profiler
+    plugins: tuple = ()                   # LaserPlugin instances (plugin/discovery.py)
     device: str = "cuda"
 
     def resolved_limits(self) -> LimitsConfig:
@@ -120,6 +121,7 @@ class MythrilAnalyzer:
             execution_timeout=cfg.execution_timeout,
             create_timeout=cfg.create_timeout,
             strategy=cfg.strategy,
+            enable_iprof=cfg.enable_iprof,
             plugins=cfg.plugins,
             device=cfg.device,
         )

@@ -13,9 +13,11 @@ halves so no intermediate exceeds 2^63. ``to_numpy`` seams convert to
 Conventions (EVM): DIV/MOD by zero -> 0; SDIV overflow (-2^255 / -1)
 -> -2^255; shifts with amount >= 256 -> 0 (SAR -> sign fill).
 
-``divmod_u`` goes through the hand-written CUDA kernel K1 on a CUDA
-tensor (``kernels/csrc/u256_divmod.cu``) and through its plain version,
-:func:`divmod_u_plain`, on a CPU tensor.
+The kernels' functions go through hand-written CUDA on a CUDA tensor and
+through their plain versions (``*_plain``) on a CPU tensor: ``divmod_u``
+(K1, ``kernels/csrc/u256_divmod.cu``), ``modexp`` (K5), ``mul`` and
+``mul_wide`` (K8, ``u256_mul.cu``), ``_mod_wide`` (ADDMOD/MULMOD) and
+``exp`` (K9, ``u256_mulmod_exp.cu``).
 """
 
 from __future__ import annotations
@@ -270,16 +272,38 @@ def _product_halves(a, b, n_out: int):
     return h[..., 0::2] | (h[..., 1::2] << 16)
 
 
-def mul(a, b):
-    """Low 256 bits of a*b."""
+def mul_plain(a, b):
+    """Plain version of K8's low product: the low 256 bits of a*b."""
     a, b = torch.broadcast_tensors(a, b)
     return _product_halves(a, b, 16)
 
 
-def mul_wide(a, b):
-    """Full 512-bit product as [..., 16] limbs."""
+def mul_wide_plain(a, b):
+    """Plain version of K8's wide product: the 512-bit a*b as [..., 16]."""
     a, b = torch.broadcast_tensors(a, b)
     return _product_halves(a, b, 32)
+
+
+def _mul_k8(a, b, mode: str):
+    from ..kernels import mul_u256
+
+    a, b = torch.broadcast_tensors(a, b)
+    return mul_u256(a.contiguous(), b.contiguous(), mode)
+
+
+def mul(a, b):
+    """Low 256 bits of a*b: K8 on a CUDA tensor, the plain version on a
+    CPU tensor."""
+    if a.is_cuda or b.is_cuda:
+        return _mul_k8(a, b, "low")
+    return mul_plain(a, b)
+
+
+def mul_wide(a, b):
+    """Full 512-bit product as [..., 16] limbs (K8 on a CUDA tensor)."""
+    if a.is_cuda or b.is_cuda:
+        return _mul_k8(a, b, "wide")
+    return mul_wide_plain(a, b)
 
 
 # ---------------------------------------------------------------------------
@@ -352,19 +376,42 @@ def smod(a, b):
     return torch.where(is_zero(b)[..., None], 0, r)
 
 
-def _mod_wide(wide, m):
-    """([..., n] limb value) mod (u256 m); m==0 -> 0. Bitwise long division."""
-    nbits = wide.shape[-1] * LIMB_BITS
+def _top_bit(x) -> int:
+    """Highest set bit over every lane of limb vectors ``x[..., n]``, -1
+    when all are zero (one host read; the plain versions run on the CPU)."""
+    nz = torch.nonzero(torch.any(x.reshape(-1, x.shape[-1]) != 0, dim=0))
+    if nz.numel() == 0:
+        return -1
+    limb = int(nz.max())
+    return LIMB_BITS * limb + int(torch.max(x[..., limb])).bit_length() - 1
+
+
+def _mod_wide_plain(wide, m):
+    """Plain version of K9's ``mod_wide``: ([..., n] limb value) mod
+    (u256 m); m==0 -> 0. Bitwise long division."""
     r = torch.zeros(wide.shape[:-1] + (NLIMBS,), dtype=CARRIER, device=wide.device)
     m = m.expand_as(r)
-    for k in range(nbits):
-        i = nbits - 1 - k
+    # leading zero bits common to every lane shift zeros into r = 0: skip them
+    for i in range(_top_bit(wide), -1, -1):
         limb, shift = i // LIMB_BITS, i % LIMB_BITS
         bit = (wide[..., limb] >> shift) & 1
         r2, overflow = _shift_in(r, bit)
         ge = gte(r2, m) | overflow
         r = torch.where(ge[..., None], sub(r2, m), r2)
     return torch.where(is_zero(m)[..., None], 0, r)
+
+
+def _mod_wide(wide, m):
+    """([..., n <= 16] limb value) mod (u256 m); m==0 -> 0: K9 on a CUDA
+    tensor, the plain version on a CPU tensor."""
+    if not (wide.is_cuda or m.is_cuda):
+        return _mod_wide_plain(wide, m)
+    from ..kernels import mod_wide_u256
+
+    if wide.shape[-1] < 2 * NLIMBS:
+        wide = torch.nn.functional.pad(wide, (0, 2 * NLIMBS - wide.shape[-1]))
+    m = m.expand(wide.shape[:-1] + (NLIMBS,))
+    return mod_wide_u256(wide.contiguous(), m.contiguous())
 
 
 def addmod(a, b, m):
@@ -514,18 +561,30 @@ def modexp(base, e, m):
 # ---------------------------------------------------------------------------
 
 
-def exp(base, e):
-    """base ** e mod 2^256, square-and-multiply (MSB-first)."""
+def exp_plain(base, e):
+    """Plain version of K9's ``exp``: base ** e mod 2^256, square-and-
+    multiply (MSB-first)."""
     base, e = torch.broadcast_tensors(base, e)
     acc = torch.zeros_like(base)
     acc[..., 0] = 1
-    for k in range(256):
-        i = 255 - k
+    # leading zero bits common to every lane square 1 into 1: skip them
+    for i in range(_top_bit(e), -1, -1):
         limb, shift = i // LIMB_BITS, i % LIMB_BITS
         bit = ((e[..., limb] >> shift) & 1) != 0
-        acc = mul(acc, acc)
-        acc = torch.where(bit[..., None], mul(acc, base), acc)
+        acc = mul_plain(acc, acc)
+        acc = torch.where(bit[..., None], mul_plain(acc, base), acc)
     return acc
+
+
+def exp(base, e):
+    """base ** e mod 2^256: K9 on a CUDA tensor, the plain version on a
+    CPU tensor."""
+    if base.is_cuda or e.is_cuda:
+        from ..kernels import exp_u256
+
+        base, e = torch.broadcast_tensors(base, e)
+        return exp_u256(base.contiguous(), e.contiguous())
+    return exp_plain(base, e)
 
 
 def _take_limb(x, idx):

@@ -1,7 +1,8 @@
 """The symbolic superstep: concrete dispatch + sym-id overlay + forking.
 
-PyTorch counterpart of the JAX package's ``symbolic/engine.py`` (one
-fork block, fifo admission, the istanbul gas schedule):
+PyTorch counterpart of the JAX package's ``symbolic/engine.py`` (the
+``packed`` fork map, every fork policy and block size, both gas
+schedules, the instruction profiler):
 
 - lanes whose current opcode touches symbolic control/addresses are
   *claimed* out of the concrete dispatch and handled by sym-aware
@@ -9,8 +10,13 @@ fork block, fifo admission, the istanbul gas schedule):
 - everything else runs the concrete handler unchanged, and a vectorized
   overlay keeps ``stack_sym``/``mem_sym`` in sync and appends tape nodes
   (kernel K3 on the card, see :func:`append_node`);
-- a symbolic JUMPI records a fork request; :func:`expand_forks` performs
-  masked lane duplication + prefix-sum compaction into free lanes;
+- a symbolic JUMPI records a fork request; :func:`expand_forks` copies
+  requesting lanes into free lanes of their fork block in the policy's
+  order (the map and fix-ups on kernel K7); starved lanes park and move
+  between blocks at chunk seams (:func:`rebalance_parked`) or in the loop
+  (:func:`migrate_parked_device`);
+- the berlin schedule adds EIP-2929 cold surcharges around dispatch
+  (:func:`_berlin_gas_pre`/:func:`_berlin_gas_post`);
 - CALL/CALLCODE/DELEGATECALL/STATICCALL push real sub-frames (or run a
   precompile 0x1-0x9: SHA-256 and MODEXP on kernels K4/K5, ecrecover and
   the other natives through one host round trip); CREATE/CREATE2 run the
@@ -44,10 +50,6 @@ from .state import SymFrontier, SymSpec, tape_row_hash, hash_bits
 I32 = torch.int32
 I64 = torch.int64
 M32 = u256.MASK32
-
-
-class UnsupportedOperation(RuntimeError):
-    """A lane reached an operation this engine does not implement."""
 
 
 # EVM opcode -> SymOp for plain binary/unary value ops (0 = no mapping)
@@ -482,7 +484,7 @@ def _frame_push(f, sf: SymFrontier, d, mi, old_pc, ret_sp, ret_off, ret_len,
 
 
 def _h_sym_call(sf: SymFrontier, op, m, old_pc, spec: SymSpec,
-                maybe_pre: bool) -> SymFrontier:
+                maybe_pre: bool, berlin: bool = False) -> SymFrontier:
     """CALL / CALLCODE / DELEGATECALL / STATICCALL with real sub-frames
     (the JAX ``_h_sym_call``). Per lane: **internal** (a concrete callee
     with code in the corpus, concrete windows and value, depth headroom)
@@ -583,11 +585,25 @@ def _h_sym_call(sf: SymFrontier, op, m, old_pc, spec: SymSpec,
     refund = torch.where(is_call & zero_val, 9000 + 25000, 0)
     refund = torch.where(is_call & nonzero_val & found & (to_sym == 0), 25000, refund)
     refund = torch.where((op == 0xF2) & zero_val, 9000, refund)
+    gmin_t, gmax_t = ((tb.GAS_MIN_BERLIN, tb.GAS_MAX_BERLIN) if berlin
+                      else (tb.GAS_MIN, tb.GAS_MAX))
+    ext_cold = 0
+    if berlin:
+        # a symbolic target that exhausted enumeration resolves here
+        # (external havoc) without ever paying its cold-account surcharge
+        from ..disassembler.opcodes import G_COLD_ACCOUNT, G_WARM_ACCESS
+
+        ext_sym = m & ~internal & ~eoa & ~pre & ~enum_hold & (to_sym != 0)
+        ext_cold = torch.where(ext_sym, G_COLD_ACCOUNT - G_WARM_ACCESS, 0)
     f = f.replace(
-        gas_min=f.gas_min - torch.where(enum_hold, tb.GAS_MIN[opl], 0),
-        gas_max=f.gas_max - torch.where(enum_hold, tb.GAS_MAX[opl],
-                                        torch.where(m, refund, 0)),
+        gas_min=f.gas_min - torch.where(enum_hold, gmin_t[opl], 0),
+        gas_max=f.gas_max + ext_cold - torch.where(enum_hold, gmax_t[opl],
+                                                   torch.where(m, refund, 0)),
     )
+    if f.op_hist is not None:
+        # iprof: a parked enumeration superstep is bookkeeping, not an
+        # executed instance; net out epilogue's +1
+        f = f.replace(op_hist=ci.hist_add(f.op_hist, op, -enum_hold.to(I32)))
     sf = sf.replace(base=f)
 
     external = m & ~internal & ~eoa & ~pre & ~enum_hold
@@ -1697,6 +1713,81 @@ def _overlay(sf: SymFrontier, env: Env, spec: SymSpec, op, m, cls, pre_sp,
 # Superstep / forking / run loop
 # ---------------------------------------------------------------------------
 
+def _berlin_gas_pre(sf: SymFrontier, op, run, a, s) -> SymFrontier:
+    """EIP-2929 cold surcharges, charged to the executing frame before
+    dispatch (the JAX ``_berlin_gas_pre``). Storage keys resolve against
+    the cache's per-tx ``st_warm`` bits, addresses against the account
+    table's ``warm_acct``; a symbolic key or address, or one outside the
+    table, cannot be tracked and lands in ``gas_max`` only. Account-op
+    targets are marked warm here, storage keys after dispatch."""
+    from ..disassembler.opcodes import G_COLD_ACCOUNT, G_COLD_SLOAD, G_WARM_ACCESS
+
+    f = sf.base
+    # the static berlin table already charged the WARM base; the cold
+    # surcharge is the difference
+    SUR_SLOAD = G_COLD_SLOAD - G_WARM_ACCESS
+    SUR_ACCT = G_COLD_ACCOUNT - G_WARM_ACCESS
+    lanes = torch.arange(f.n_lanes, device=op.device)
+
+    # storage: SLOAD/SSTORE (key = operand 0)
+    m_st = run & ((op == 0x54) | (op == 0x55))
+    key_conc = s[0] == 0
+    hit, _, slot = ci._storage_lookup(f, a[0])
+    K = f.st_warm.shape[1]
+    warm_bit = f.st_warm[lanes, torch.clamp(slot, 0, K - 1).long()]
+    st_cold = ~(hit & warm_bit)
+    st_sur_max = torch.where(m_st, SUR_SLOAD, 0).to(I64)
+    st_sur_min = torch.where(m_st & key_conc & st_cold, SUR_SLOAD, 0).to(I64)
+    st_sur_max = torch.where(m_st & key_conc & ~st_cold, 0, st_sur_max)
+
+    # account access: BALANCE/EXTCODESIZE/EXTCODECOPY/EXTCODEHASH and
+    # SELFDESTRUCT (operand 0), the CALL family (operand 1)
+    m_acct0 = run & ((op == 0x31) | (op == 0x3B) | (op == 0x3C) | (op == 0x3F) | (op == 0xFF))
+    m_call = run & (ci._tab(op).CLASS[op.long()] == ci.CLS_CALL)
+    addr_w = torch.where(m_call[:, None], a[1], a[0])
+    addr_sym = torch.where(m_call, s[1], s[0])
+    m_addr = m_acct0 | m_call
+    found, aslot = f.acct_lookup(addr_w)
+    A = f.warm_acct.shape[1]
+    awarm = found & f.warm_acct[lanes, torch.clamp(aslot, 0, A - 1).long()]
+    addr_conc = addr_sym == 0
+    tracked = addr_conc & found
+    # a symbolic CALL target pays when its enumeration fork resolves it (or
+    # in the call handler's external fallback); the other address ops run
+    # once, so a symbolic address charges cold into gas_max now
+    ac_sur_min = torch.where(m_addr & tracked & ~awarm, SUR_ACCT, 0).to(I64)
+    ac_sur_max = torch.where((m_addr & addr_conc & (~found | ~awarm)) | (m_acct0 & ~addr_conc),
+                             SUR_ACCT, 0).to(I64)
+    aidx = torch.where(m_addr & tracked, aslot, A)
+    warm_acct = ci._write_slot(f.warm_acct, aidx, True)
+    return sf.replace(base=f.replace(
+        gas_min=f.gas_min + st_sur_min + ac_sur_min,
+        gas_max=f.gas_max + st_sur_max + ac_sur_max,
+        warm_acct=warm_acct,
+    ))
+
+
+def _berlin_gas_post(sf: SymFrontier, op, run, key_w, key_s) -> SymFrontier:
+    """Post-dispatch storage warm marking (the JAX ``_berlin_gas_post``):
+    the touched key's cache entry gets its per-tx warm bit; a concrete
+    SLOAD miss allocates a (key, 0, unwritten) entry so the next access
+    is provably warm."""
+    f = sf.base
+    m_st = run & ((op == 0x54) | (op == 0x55)) & (key_s == 0) & ~f.error
+    hit, _, slot = ci._storage_lookup(f, key_w)
+    need_alloc = m_st & ~hit & (op == 0x54)
+    widx, overflow = ci.storage_alloc(f, hit, slot, need_alloc)
+    st_keys = ci._write_slot(f.st_keys, widx, key_w)
+    st_used = ci._write_slot(f.st_used, widx, True)
+    st_acct = ci._write_slot(f.st_acct, widx, f.cur_acct)
+    # a full cache simply loses warm tracking (overcharges later, sound)
+    K = f.st_warm.shape[1]
+    midx = torch.where(m_st & hit, slot, torch.where(need_alloc & ~overflow, widx, K))
+    st_warm = ci._write_slot(f.st_warm, torch.clamp(midx, 0, K), True)
+    return sf.replace(base=f.replace(st_keys=st_keys, st_used=st_used, st_acct=st_acct,
+                                     st_warm=st_warm))
+
+
 # host-read predicate slots of sym_superstep (one transfer per superstep,
 # after the 16 class-present flags)
 _P_STORAGE, _P_JUMP, _P_CALL, _P_CREATE, _P_MISC, _P_PRE, _P_FRAMES, _P_INIT = range(16, 24)
@@ -1706,9 +1797,8 @@ def sym_superstep(sf: SymFrontier, env: Env, corpus: Corpus,
                   spec: SymSpec = SymSpec(),
                   limits: LimitsConfig = DEFAULT_LIMITS) -> SymFrontier:
     """Advance every running lane by one instruction, symbolically."""
-    if limits.gas_schedule == "berlin":
-        raise UnsupportedOperation("the berlin gas schedule is not supported by this engine")
-    f, op, run, old_pc = ci.prologue(sf.base, corpus)
+    berlin = limits.gas_schedule == "berlin"
+    f, op, run, old_pc = ci.prologue(sf.base, corpus, berlin=berlin)
     sf = sf.replace(base=f)
     tb = ci._tab(op)
     cls = tb.CLASS[op.long()]
@@ -1716,6 +1806,8 @@ def sym_superstep(sf: SymFrontier, env: Env, corpus: Corpus,
     pre_stack_sym = sf.stack_sym
     a = [ci._peek(f, i) for i in range(4)]
     s = [_peek_sym(sf, i) for i in range(7)]
+    if berlin:
+        sf = _berlin_gas_pre(sf, op, run, a, s)
 
     is_jumpi = op == 0x57
     known, ksign = _lookup_constraint(sf, s[1])
@@ -1771,12 +1863,15 @@ def sym_superstep(sf: SymFrontier, env: Env, corpus: Corpus,
     if preds[_P_JUMP]:
         sf = _h_sym_jump(sf, corpus, op, claim_jump, old_pc, known, ksign)
     if preds[_P_CALL]:
-        sf = _h_sym_call(sf, op, claim_call, old_pc, spec, bool(preds[_P_PRE]))
+        sf = _h_sym_call(sf, op, claim_call, old_pc, spec, bool(preds[_P_PRE]), berlin)
     if preds[_P_CREATE]:
         sf = _h_sym_create(sf, op, claim_create, old_pc)
     if preds[_P_MISC]:
         sf = _h_sym_claimed_misc(sf, op, claim_memoff, claim_sha3off, claim_copyoff,
                                  claim_haltoff, claim_logoff)
+
+    if berlin:
+        sf = _berlin_gas_post(sf, op, run, a[0], s[0])
 
     # bounded loops: any jump that landed at-or-before its own pc (the
     # fork-taken copies are counted in expand_forks)
@@ -1913,29 +2008,99 @@ def between_txs(sf: SymFrontier, require_mutation: bool = True,
     )
 
 
-def plan_fork_map(req, free):
-    """The packed, fifo fork source->destination mapping of the JAX
-    ``plan_fork_map`` (single block): free slot j with free-rank t copies
-    from the t-th requesting lane in lane order. Returns ``(src [P],
-    is_copy [P], slot [P])`` — ``slot == P`` marks a starved request."""
-    P = req.shape[0]
-    dev = req.device
-    loc = torch.arange(P, dtype=I32, device=dev)
-    req_i = req.to(I32)
-    rank = torch.cumsum(req_i, 0, dtype=I32) - req_i
-    n_free = free.to(I32).sum()
-    # requesters in lane order; P pads the tail (never gathered: free_rank
-    # < n_admit <= n_req keeps the index in range)
-    order = torch.sort(torch.where(req, loc, P), stable=True).values
-    n_req = req_i.sum()
-    n_admit = torch.minimum(n_free, n_req)
-    free_i = free.to(I32)
-    free_rank = torch.cumsum(free_i, 0, dtype=I32) - free_i
-    is_copy = free & (free_rank < n_admit)
-    src_i = order[torch.clamp(free_rank, 0, P - 1).long()]
-    src = torch.where(is_copy, src_i, loc)
-    slot = torch.where(req & (rank < n_free), 0, P).to(I32)
-    return src, is_copy, slot
+# rows of K7's outputs (kernels/csrc/fork_plan.cu), shared with its plain
+# version
+O_SRC, O_SLOT, O_PC, O_SP, O_CON_LEN, O_LAST, O_CIDX, O_CALL_ENUM, O_DROPPED = range(9)
+B_COPY, B_FORK_REQ, B_STARVED, B_BACK = range(4)
+
+
+def fork_ksent(B: int) -> int:
+    """The packed-key sentinel of the JAX ``plan_fork_map``: the key budget
+    that keeps ``key * B + lane`` inside int32."""
+    return min(1 << 16, (2 ** 31 - 1 - (B - 1)) // B)
+
+
+def _policy_key(policy: str, con_len, fork_dest, contract_id, visited, n_con: int):
+    """Per-lane admission key of a fork policy (JAX ``expand_forks``),
+    int64[P]; lower admits first."""
+    depth = con_len.to(I64)
+    if policy == "fifo":
+        return torch.zeros_like(depth)
+    if policy in ("shallow", "beam"):
+        return depth
+    if policy == "deep":
+        return n_con - depth
+    if policy in ("weighted", "random"):
+        # the shared counter-free (lane, target, depth) hash, in u32
+        lanes = torch.arange(depth.shape[0], dtype=I64, device=depth.device)
+        h = (lanes * 2654435761 + (fork_dest.to(I64) & M32) * 40503
+             + (depth & M32) * 131) & M32
+        h = (h >> 16) ^ h
+        if policy == "weighted":
+            return ((h & 1023) * (depth + 1)) % 65536
+        return h & 0x7FFF
+    if policy == "coverage":
+        if visited is None:
+            return torch.zeros_like(depth)
+        r = torch.clamp(contract_id, 0, visited.shape[0] - 1).long()
+        c = torch.clamp(fork_dest, 0, visited.shape[1] - 1).long()
+        return visited[r, c].to(I64)
+    raise ValueError(f"unknown fork_policy: {policy}")
+
+
+def fork_plan_plain(active, fork_req, con_len, fork_dest, contract_id, pc, sp,
+                    dropped_forks, fork_cslot, call_enum, visited, *, block: int,
+                    policy: str, n_con: int, n_stack: int, defer: bool):
+    """Plain version of K7: the JAX packed ``plan_fork_map`` for every
+    policy over fork blocks of ``block`` lanes, and the per-lane fix-ups
+    ``expand_forks`` makes after its gather, read from each lane's source.
+    Returns K7's (``int32[9, P]``, ``bool[9, P]``) rows (``O_*``/``B_*``)."""
+    P = active.shape[0]
+    B = block
+    G = P // B
+    ksent = fork_ksent(B)
+    dev = active.device
+    loc = torch.arange(B, dtype=I64, device=dev)[None, :]
+    req = fork_req & active
+    free = ~active
+    req2, free2 = req.reshape(G, B), free.reshape(G, B)
+    key = _policy_key(policy, con_len, fork_dest, contract_id, visited, n_con).reshape(G, B)
+    # one sort of the packed (key, lane) composites gives the admission
+    # order; a lane's sorted position is its rank
+    ukey = torch.where(req2, torch.clamp(key, max=ksent - 1), ksent) * B + loc
+    skey = torch.sort(ukey, dim=1).values
+    rank = torch.searchsorted(skey, ukey)
+    n_free = free2.sum(dim=1, keepdim=True)
+    n_req = req2.sum(dim=1, keepdim=True)
+    n_adm = torch.clamp(n_free, max=max(1, B // 4)) if policy == "beam" else n_free
+    n_admit = torch.minimum(n_adm, n_req)
+    free_rank = torch.cumsum(free2.to(I64), dim=1) - free2.to(I64)
+    is_copy2 = free2 & (free_rank < n_admit)
+    src_i = torch.gather(skey % B, 1, torch.clamp(free_rank, 0, B - 1))
+    src2 = torch.where(is_copy2, src_i, loc) + torch.arange(G, device=dev)[:, None] * B
+    src = src2.reshape(P)
+    is_copy = is_copy2.reshape(P)
+    slot = torch.where(req2 & (rank < n_adm), 0, P).reshape(P)
+    starved = req & (slot == P)
+    cs = fork_cslot[src]
+    is_cf = cs >= 0
+    pc_s, dest_s, cl_s = pc[src], fork_dest[src], con_len[src]
+    pc_new = torch.where(is_copy, dest_s, pc_s)
+    sp_new, cl_new = sp[src], cl_s
+    ce_new = torch.where(is_copy, 0, call_enum[src])
+    n_dropped = torch.zeros_like(starved) if defer else starved
+    if defer:
+        un_jump = starved & ~is_cf
+        pc_new = torch.where(un_jump, pc_s - 1, pc_new)
+        sp_new = torch.where(un_jump, sp_new + 2, sp_new)
+        cl_new = cl_new - starved.to(I32)
+        ce_new = ce_new - (starved & is_cf).to(I32)
+    out_i = torch.stack([
+        src, slot, pc_new, sp_new, cl_new, torch.where(is_copy, cl_s - 1, -1),
+        torch.where(is_copy & is_cf & (cs < n_stack), cs, n_stack), ce_new,
+        torch.where(is_copy, 0, dropped_forks[src]) + n_dropped.to(I32)]).to(I32)
+    out_b = torch.stack([is_copy, starved & defer, starved, is_copy & (dest_s < pc_s)])
+    return out_i, out_b
 
 
 def _gather_lanes(x, src):
@@ -1944,96 +2109,252 @@ def _gather_lanes(x, src):
     return x[src]
 
 
-def expand_forks(sf: SymFrontier, loop_bound: int = 0,
-                 defer_starved: bool = False) -> SymFrontier:
-    """Materialize fork requests: copy each forking lane into a free lane,
-    point the copy at the jump target, and flip its final path-condition
-    sign to "taken". Forks beyond capacity are counted in
-    ``dropped_forks``, or with ``defer_starved`` un-execute their branch
-    decision and retry next superstep. One block (``fork_block=0``),
-    ``fifo`` admission, the ``packed`` mapping."""
+def _gather_struct(st, src):
+    """Every lane-axis leaf of a TensorStruct gathered by ``src``; scalar
+    run totals pass through."""
+    import dataclasses
+
+    kw = {}
+    for fl in dataclasses.fields(st):
+        v = getattr(st, fl.name)
+        kw[fl.name] = _gather_struct(v, src) if fl.name == "base" else _gather_lanes(v, src)
+    return type(st)(**kw)
+
+
+def expand_forks(sf: SymFrontier, loop_bound: int = 0, fork_block: int = 0,
+                 fork_policy: str = "fifo", defer_starved: bool = False,
+                 visited=None) -> SymFrontier:
+    """Materialize fork requests: copy each forking lane into a free lane
+    of its fork block, point the copy at the jump target, and flip its
+    final path-condition sign to "taken". Forks beyond capacity are
+    counted in ``dropped_forks``, or with ``defer_starved`` un-execute
+    their branch decision and retry next superstep.
+
+    ``fork_block`` confines copies to blocks of that many lanes (0 = one
+    block of P); ``fork_policy`` (fifo, shallow, deep, random, weighted,
+    coverage, beam) orders admission when free slots run short;
+    ``visited`` (``bool[C, MC]``) feeds the coverage policy. The map and
+    the per-lane fix-ups come from kernel K7 on the card and from its
+    plain version on the CPU; the gather of every field stays PyTorch."""
     P = sf.n_lanes
-    req = sf.fork_req & sf.base.active
-    free = ~sf.base.active
-    src, is_copy, slot = plan_fork_map(req, free)
-    srcl = src.long()
+    if fork_block > 0 and P % fork_block != 0:
+        raise ValueError(f"fork_block {fork_block} must divide P={P}")
+    B = fork_block if fork_block > 0 else P
+    b0 = sf.base
+    args = (b0.active, sf.fork_req, sf.con_len, sf.fork_dest, b0.contract_id, b0.pc,
+            b0.sp, sf.dropped_forks, sf.fork_cslot, sf.call_enum, visited)
+    kw = dict(block=B, policy=fork_policy, n_con=sf.con_node.shape[1],
+              n_stack=b0.stack.shape[1], defer=defer_starved)
+    if b0.active.is_cuda:
+        from ..kernels import fork_plan
 
-    def gather_struct(st):
-        import dataclasses
+        out_i, out_b = fork_plan(*args, **kw)
+    else:
+        out_i, out_b = fork_plan_plain(*args, **kw)
+    is_copy, starved = out_b[B_COPY], out_b[B_STARVED]
 
+    # the iprof residual sidecar is lane-independent: keep it out of the
+    # lane gather
+    resid = b0.op_resid
+    if resid is not None:
+        sf = sf.replace(base=b0.replace(op_resid=None))
+    new = _gather_struct(sf, out_i[O_SRC].long())
+    b = new.base
+    src_pc = b.pc - 1
+    C = new.con_sign.shape[1]
+    last = torch.arange(C, device=b.pc.device)[None, :] == out_i[O_LAST][:, None]
+    cidx = out_i[O_CIDX]
+    stack_c = ci._write_slot(b.stack, cidx, new.fork_cval)
+    stack_sym_c = ci._write_slot(new.stack_sym, cidx, 0)
+    hist = b.op_hist
+    if defer_starved:
+        # the retried JUMPI re-pays its static charge next superstep (10 =
+        # G_HIGH); CALL retries refund inside the call handler itself
+        un_jump = starved & (new.fork_cslot < 0)
+        g_undo = torch.where(un_jump, 10, 0).to(b.gas_min.dtype)
+        b = b.replace(gas_min=b.gas_min - g_undo, gas_max=b.gas_max - g_undo)
+        if hist is not None:
+            # iprof: the un-executed JUMPI (0x57) re-runs next superstep
+            hist = hist.clone()
+            hist[:, 0x57] -= un_jump.to(I32)
+    if hist is not None:
+        # a fork copy starts with an empty histogram; the recycled slot's
+        # unharvested counts move to the residual sidecar
+        resid = resid + torch.where(is_copy[:, None], b0.op_hist, 0).sum(0, dtype=I32)
+        hist = torch.where(is_copy[:, None], 0, hist)
+    new = new.replace(
+        base=b.replace(pc=out_i[O_PC], sp=out_i[O_SP], active=b.active | is_copy,
+                       stack=stack_c, op_hist=hist, op_resid=resid),
+        stack_sym=stack_sym_c,
+        con_sign=torch.where(last, True, new.con_sign),
+        con_len=out_i[O_CON_LEN],
+        fork_req=out_b[B_FORK_REQ],
+        fork_cslot=torch.full_like(new.fork_cslot, -1),
+        fork_cval=torch.zeros_like(new.fork_cval),
+        call_enum=out_i[O_CALL_ENUM],
+        dropped_forks=out_i[O_DROPPED],
+        dropped_total=new.dropped_total + (0 if defer_starved else starved.sum(dtype=I32)),
+    )
+    return _note_backjump(new, out_b[B_BACK], src_pc, new.fork_dest, loop_bound)
+
+
+def _detach_resid(sf: SymFrontier):
+    resid = sf.base.op_resid
+    if resid is not None:
+        sf = sf.replace(base=sf.base.replace(op_resid=None))
+    return sf, resid
+
+
+def _move_lanes(sf: SymFrontier, src, dst):
+    """Every lane-axis leaf with lanes ``src`` copied onto lanes ``dst``."""
+    import dataclasses
+
+    def move(st):
         kw = {}
         for fl in dataclasses.fields(st):
             v = getattr(st, fl.name)
             if fl.name == "base":
-                kw[fl.name] = gather_struct(v)
-            else:
-                kw[fl.name] = _gather_lanes(v, srcl)
+                v = move(v)
+            elif isinstance(v, torch.Tensor) and v.dim() > 0:
+                v = v.clone()
+                v[dst] = v[src]
+            kw[fl.name] = v
         return type(st)(**kw)
 
-    new = gather_struct(sf)
+    return move(sf)
+
+
+def rebalance_parked(sf: SymFrontier, fork_block: int = 0, active=None, fork_req=None):
+    """Move persistently starved fork-requesting lanes into other blocks'
+    free slots (the JAX ``rebalance_parked``): planned on the host at the
+    chunk seam from ``active``/``fork_req`` (host copies a caller already
+    holds, else read here), applied as one device move per leaf. A parked
+    lane whose own block has no free slot goes to the block with the most
+    free slots, if that has at least two. Returns ``(sf, n_moved)``."""
+    if active is None:
+        active = sf.base.active.cpu().numpy()
+    if fork_req is None:
+        fork_req = sf.fork_req.cpu().numpy()
+    parked = np.asarray(fork_req) & np.asarray(active)
+    if not parked.any():
+        return sf, 0
+    P = parked.shape[0]
+    B = fork_block if fork_block > 0 else P
+    G = P // B
+    free = ~np.asarray(active)
+    free_cnt = free.reshape(G, B).sum(axis=1)
+    free_lists = [list(np.where(free.reshape(G, B)[g])[0] + g * B) for g in range(G)]
+    src_idx, dst_idx = [], []
+    for lane in np.where(parked)[0]:
+        g = lane // B
+        if free_cnt[g] > 0:
+            continue  # the local retry will succeed on its own
+        g2 = int(np.argmax(free_cnt))
+        if free_cnt[g2] < 2:
+            continue  # no global headroom for (lane + its fork)
+        dst = free_lists[g2].pop()
+        free_cnt[g2] -= 1
+        src_idx.append(int(lane))
+        dst_idx.append(int(dst))
+        # the vacated slot serves the source block's remaining requests
+        free_cnt[g] += 1
+        free_lists[g].append(int(lane))
+    if not src_idx:
+        return sf, 0
+    dev = sf.base.pc.device
+    src = torch.as_tensor(src_idx, dtype=torch.long, device=dev)
+    dst = torch.as_tensor(dst_idx, dtype=torch.long, device=dev)
+    old_hist = sf.base.op_hist
+    sf, resid = _detach_resid(sf)
+    new = _move_lanes(sf, src, dst)
     b = new.base
-    C = new.con_sign.shape[1]
-    last = ((torch.arange(C, device=src.device)[None, :] == (new.con_len - 1)[:, None])
-            & is_copy[:, None])
-    starved = req & (slot == P)
-    n_dropped = torch.zeros(P, dtype=I32, device=src.device) if defer_starved \
-        else starved.to(I32)
-    dropped = torch.where(is_copy, 0, new.dropped_forks) + n_dropped
-    back_copy = is_copy & (new.fork_dest < b.pc)
-    cs = new.fork_cslot
-    S = b.stack.shape[1]
-    cidx = torch.where(is_copy & (cs >= 0) & (cs < S), cs, S)
-    stack_c = ci._write_slot(b.stack, cidx, new.fork_cval)
-    stack_sym_c = ci._write_slot(new.stack_sym, cidx, 0)
-
-    is_cf = cs >= 0  # call-enumeration fork (source parked on the CALL)
-    if defer_starved:
-        pc_new = torch.where(is_copy, new.fork_dest,
-                             torch.where(starved & ~is_cf, b.pc - 1, b.pc))
-        sp_new = torch.where(starved & ~is_cf, b.sp + 2, b.sp)
-        con_len_new = new.con_len - starved.to(I32)
-        g_undo = torch.where(starved & ~is_cf, 10, 0).to(b.gas_min.dtype)
-        b = b.replace(gas_min=b.gas_min - g_undo, gas_max=b.gas_max - g_undo)
-        call_enum_new = torch.where(is_copy, 0, new.call_enum - (starved & is_cf).to(I32))
-        fork_req_new = starved
-    else:
-        pc_new = torch.where(is_copy, new.fork_dest, b.pc)
-        sp_new = b.sp
-        con_len_new = new.con_len
-        call_enum_new = torch.where(is_copy, 0, new.call_enum)
-        fork_req_new = torch.zeros_like(new.fork_req)
-    new = new.replace(
-        base=b.replace(pc=pc_new, sp=sp_new, active=b.active | is_copy, stack=stack_c),
-        stack_sym=stack_sym_c,
-        con_sign=torch.where(last, True, new.con_sign),
-        con_len=con_len_new,
-        fork_req=fork_req_new,
-        fork_cslot=torch.full_like(new.fork_cslot, -1),
-        fork_cval=torch.zeros_like(new.fork_cval),
-        call_enum=call_enum_new,
-        dropped_forks=dropped,
-        dropped_total=new.dropped_total + n_dropped.sum(dtype=I32),
-    )
-    return _note_backjump(new, back_copy, b.pc - 1, new.fork_dest, loop_bound)
+    active_t = b.active.clone()
+    active_t[src] = False
+    hist = b.op_hist
+    if hist is not None:
+        # iprof: the moved rows travel with their lanes; the vacated rows
+        # zero and the destinations' earlier rows go to the sidecar
+        resid = resid + old_hist[dst].sum(0, dtype=I32)
+        hist[src] = 0
+    fork_req_t = new.fork_req.clone()
+    fork_req_t[src] = False
+    return new.replace(base=b.replace(active=active_t, op_hist=hist, op_resid=resid),
+                       fork_req=fork_req_t), len(src_idx)
 
 
-def rebalance_parked(sf: SymFrontier):
-    """The JAX ``rebalance_parked`` moves a parked lane only into ANOTHER
-    block with >= 2 free slots, and only when its own block has none.
-    With one block (``fork_block=0``, the only layout of this engine) the
-    lane's own block is the best block: it either has a free slot (the
-    lane is skipped) or has none (then the best block has < 2 and the
-    lane is skipped too). So it moves nothing, and this returns
-    ``(sf, 0)`` without reading the frontier."""
-    return sf, 0
+def migrate_parked_device(sf: SymFrontier, fork_block: int, mig_cap: int = 8) -> SymFrontier:
+    """In-loop cross-block migration of starved fork-requesting lanes (the
+    JAX ``migrate_parked_device``): a parked lane whose block has no free
+    slot moves, through a compact ``[G, MIG]`` buffer, to a block with at
+    least two free slots (freer blocks fill first); at most ``mig_cap``
+    lanes leave or enter a block per call. The moved lane keeps its fork
+    request; its old slot deactivates. Plain PyTorch, no host read."""
+    P = sf.n_lanes
+    B = fork_block if fork_block > 0 else P
+    G = P // B
+    if G <= 1:
+        return sf
+    MIG = max(1, min(mig_cap, B // 2))
+    NF = G * MIG
+    dev = sf.base.pc.device
+    old_hist = sf.base.op_hist
+    sf, resid = _detach_resid(sf)
+    ab = sf.base.active.reshape(G, B)
+    stb = (sf.fork_req & sf.base.active).reshape(G, B)
+    freeb = ~ab
+    fc = freeb.sum(dim=1, dtype=I32)
+    expb = stb & (fc == 0)[:, None]
+    r_exp = torch.cumsum(expb.to(I32), dim=1, dtype=I32) - 1
+    sel = expb & (r_exp < MIG)
+    n_exp = torch.clamp(expb.sum(dim=1, dtype=I32), max=MIG)
+    hit = sel[:, :, None] & (r_exp[:, :, None] == torch.arange(MIG, device=dev)[None, None, :])
+    exp_idx = torch.where(hit.any(dim=1), first_true(hit, dim=1), B)  # [G, MIG]
+    cap = torch.clamp(fc - 1, 0, MIG)
+    order = torch.sort(-fc, stable=True).indices
+    cap_sorted = cap[order]
+    ioff_sorted = torch.cumsum(cap_sorted, 0, dtype=I32) - cap_sorted
+    ioff = torch.zeros(G, dtype=I32, device=dev)
+    ioff[order] = ioff_sorted
+    total_cap = cap.sum(dtype=I32)
+    eoff = torch.cumsum(n_exp, 0, dtype=I32) - n_exp
+    total_exp = n_exp.sum(dtype=I32)
+    M = torch.minimum(total_exp, total_cap)
+    grank = eoff[:, None] + torch.arange(MIG, dtype=I32, device=dev)[None, :]
+    valid_e = torch.arange(MIG, device=dev)[None, :] < n_exp[:, None]
+    flat_ids = torch.arange(NF, dtype=I32, device=dev).reshape(G, MIG)
+    src_of_rank = torch.full((NF + 1,), NF, dtype=I32, device=dev)
+    src_of_rank[torch.where(valid_e, grank, NF).reshape(-1).long()] = flat_ids.reshape(-1)
+    src_of_rank = src_of_rank[:NF]
+    r_free = torch.cumsum(freeb.to(I32), dim=1, dtype=I32) - 1
+    imp_take = torch.clamp(M - ioff, min=0)
+    imp_take = torch.minimum(imp_take, cap)
+    is_imp = freeb & (r_free < imp_take[:, None])
+    q = ioff[:, None] + r_free
+    srcflat = src_of_rank[torch.clamp(q, 0, NF - 1).long()]
+    srcflat = torch.where(is_imp, srcflat, 0).long()
+    exported = sel & ((eoff[:, None] + r_exp) < M)
+    imp_flat = is_imp.reshape(P)
+    # the buffer's lane ids: block g, slot j <- lane g*B + exp_idx (clipped)
+    buf_lane = (torch.clamp(exp_idx, 0, B - 1)
+                + torch.arange(G, device=dev)[:, None] * B).reshape(NF).long()
+    src_lane = buf_lane[srcflat.reshape(P)]
+    src_lane = torch.where(imp_flat, src_lane, torch.arange(P, device=dev))
+    new = _gather_struct(sf, src_lane)
+    vac = exported.reshape(P)
+    b = new.base.replace(active=new.base.active & ~vac)
+    if b.op_hist is not None:
+        resid = resid + torch.where(imp_flat[:, None], old_hist, 0).sum(0, dtype=I32)
+        b = b.replace(op_hist=torch.where(vac[:, None], 0, b.op_hist))
+    return new.replace(base=b.replace(op_resid=resid), fork_req=new.fork_req & ~vac)
 
 
-# lanes run by every superstep so far and the supersteps themselves (read
-# from the loop's own per-step check, so they cost no extra sync). With
+# lanes run by every superstep so far, the supersteps and the feasibility
+# sweeps (read from the loop's own per-step check, so they cost no extra
+# sync). With
 # ENGINE_STATS["timing"] set, each stage of the loop is also timed on the
 # host clock between device synchronizations (a measurement mode: the
 # extra syncs slow the loop down).
-ENGINE_STATS = {"lane_steps": 0, "supersteps": 0, "timing": False,
+ENGINE_STATS = {"lane_steps": 0, "supersteps": 0, "sweeps": 0, "timing": False,
                 "superstep_s": 0.0, "forks_s": 0.0, "propagate_s": 0.0}
 # sub-frames pushed (CALL family and constructor frames) and returned; the
 # sums stay on the device (no sync) until a caller reads them with int()
@@ -2065,24 +2386,36 @@ def sym_run(sf: SymFrontier, env: Env, corpus: Corpus,
             limits: LimitsConfig = DEFAULT_LIMITS,
             max_steps: int = 256,
             propagate_every=None,
+            fork_block: int = 0,
             track_coverage: bool = False,
-            defer_starved: bool = False):
+            fork_policy: str = "fifo",
+            defer_starved: bool = False,
+            migrate_every: int = 0):
     """Run the symbolic engine until quiescence or ``max_steps``
-    supersteps (the JAX ``_sym_run_impl`` with ``fork_block=0``, ``fifo``
-    and the ``packed`` fork map). ``propagate_every`` > 0 interleaves
-    feasibility sweeps; None uses ``limits.propagate_every``; the cadence
-    counts from this call's first step. With ``track_coverage`` a
-    ``bool[C, MAX_CODE]`` visited-pc bitmap is returned too.
+    supersteps (the JAX ``_sym_run_impl`` with the ``packed`` fork map).
+    ``propagate_every`` > 0 interleaves feasibility sweeps; None uses
+    ``limits.propagate_every``; the cadence counts from this call's first
+    step. ``fork_block`` confines fork copies to lane blocks and
+    ``fork_policy`` orders their admission (:func:`expand_forks`; the
+    coverage policy reads this call's visited bitmap when
+    ``track_coverage`` is on). ``migrate_every`` > 0 with
+    ``defer_starved`` and several blocks runs
+    :func:`migrate_parked_device` every that many supersteps. With
+    ``track_coverage`` a ``bool[C, MAX_CODE]`` visited-pc bitmap is
+    returned too.
 
     The JAX ``while_loop``'s ``any(running)`` condition is one host read
-    per step (of the running-lane count), the fork-expansion cond one more."""
+    per step (of the running-lane count), the fork-expansion cond one
+    more, and the migration cond one more on its cadence."""
     from .propagate import kill_infeasible
 
     if propagate_every is None:
         propagate_every = limits.propagate_every
+    P = sf.n_lanes
     C, MC = corpus.code.shape
     # row C of the bitmap takes the lanes that write nowhere
     visited = torch.zeros((C + 1, MC), dtype=torch.bool, device=sf.tape_op.device)
+    migrate = migrate_every > 0 and defer_starved and 0 < fork_block < P
     for i in range(max_steps):
         n_running = ci.host_list(sf.base.running.sum())
         if not n_running:
@@ -2097,9 +2430,19 @@ def sym_run(sf: SymFrontier, env: Env, corpus: Corpus,
             visited[cid, pc] = True
         sf = _stage("superstep_s", sym_superstep, sf, env, corpus, spec, limits)
         if ci.host_bool(torch.any(sf.fork_req & sf.base.active)):
-            sf = _stage("forks_s", expand_forks, sf, limits.loop_bound, defer_starved)
+            sf = _stage("forks_s", expand_forks, sf, limits.loop_bound, fork_block,
+                        fork_policy, defer_starved, visited[:C] if track_coverage else None)
         if propagate_every and (i % propagate_every) == propagate_every - 1:
+            ENGINE_STATS["sweeps"] += 1
             sf = _stage("propagate_s", kill_infeasible, sf)
+        if migrate and (i % migrate_every) == migrate_every - 1:
+            # fire only when some exhausted block starves AND some block
+            # has room for a lane and its fork
+            occ = sf.base.active.reshape(-1, fork_block).sum(dim=1)
+            starving = (sf.fork_req & sf.base.active).reshape(-1, fork_block).any(dim=1)
+            if ci.host_bool(torch.any(starving & (occ == fork_block))
+                            & torch.any(occ <= fork_block - 2)):
+                sf = migrate_parked_device(sf, fork_block)
     if track_coverage:
         return sf, visited[:C]
     return sf

@@ -9,9 +9,11 @@ contradicted when either domain proves the node can't be nonzero
 Both domains only over-approximate, so a kill is always correct.
 
 The pass is incremental: lane p walks its nodes [prop_len[p],
-tape_len[p]), so the loop runs max-new-nodes times (one host read of that
-count per sweep) — usually a handful of iterations every
-``propagate_every`` supersteps.
+tape_len[p]). On the card the sweep and the constraint check are kernel
+K6 (``kernels/csrc/propagate_sweep.cu``): one thread per lane, in place
+on the domain tensors, with no host read. On the CPU the plain version
+below runs the JAX loop: max-new-nodes lock-step iterations over all
+lanes (that count read once per sweep).
 """
 
 from __future__ import annotations
@@ -83,9 +85,9 @@ def _node_domains(op, a_id, b_id, imm, la, ha, lb, hb, ka, va, kb, vb):
     r_hi = torch.where(_sel(op, SymOp.SUB), torch.where(no_wrap[:, None], d_hi, top_hi), r_hi)
 
     # MUL: exact when hi*hi fits 256 bits
-    wide = u256.mul_wide(ha, hb)
+    wide = u256.mul_wide_plain(ha, hb)
     fits = torch.all(wide[:, 8:] == 0, dim=-1)
-    m_lo = u256.mul(la, lb)
+    m_lo = u256.mul_plain(la, lb)
     m_hi = wide[:, :8]
     r_lo = torch.where(_sel(op, SymOp.MUL), torch.where(fits[:, None], m_lo, 0), r_lo)
     r_hi = torch.where(_sel(op, SymOp.MUL), torch.where(fits[:, None], m_hi, top_hi), r_hi)
@@ -222,7 +224,22 @@ def _node_domains(op, a_id, b_id, imm, la, ha, lb, hb, ka, va, kb, vb):
 def propagate_feasibility(sf: SymFrontier):
     """INCREMENTAL forward pass over every lane's tape. Returns ``(sf,
     infeasible)``: the frontier with updated domain tensors + ``prop_len``,
-    and the per-lane infeasibility verdict."""
+    and the per-lane infeasibility verdict. A CUDA frontier goes to K6,
+    which updates the domain tensors and ``prop_len`` in place; a CPU
+    frontier to :func:`propagate_feasibility_plain`."""
+    if sf.tape_op.is_cuda:
+        from ..kernels import propagate_sweep
+
+        infeasible = propagate_sweep(
+            sf.tape_op, sf.tape_a, sf.tape_b, sf.tape_imm, sf.tape_len, sf.prop_len,
+            sf.iv_lo, sf.iv_hi, sf.kb_m, sf.kb_v, sf.con_node, sf.con_sign, sf.con_len)
+        return sf, infeasible
+    return propagate_feasibility_plain(sf)
+
+
+def propagate_feasibility_plain(sf: SymFrontier):
+    """Plain version of K6: the same pass as lock-step PyTorch over all
+    lanes, on new domain tensors."""
     from ..core.interpreter import host_list
 
     P, T = sf.tape_op.shape

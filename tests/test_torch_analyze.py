@@ -3,8 +3,9 @@
 - the 20 golden fixtures, issue for issue against ``tests/fixtures/goldens``;
 - the CLI with ``--device cpu -o json``, with ``--creation-code`` (the
   precompile fixture at the test profile, against the JAX CLI's report
-  pinned in ``tests/fixtures/torch_port/precompiles_test.json``), and the
-  refusal of each cut.
+  pinned in ``tests/fixtures/torch_port/precompiles_test.json``), the
+  refusal of each part not ported yet, and a run with each flag that an
+  earlier slice refused (strategies, the profiler, checkpoints, plugins).
 
 (The [erc20full, erc721] batch against the JAX ``SymExecWrapper`` —
 issues, coverage and frontiers — is in ``test_torch_engine.py``, whose
@@ -24,8 +25,10 @@ from test_goldens import GOLDEN_DIR, _fixtures, _issue_key
 from torch_port_fixtures import FIXTURE_DIR, precompiles_files
 
 GOLDENS = sorted(_fixtures())
-CUT_FLAGS = [["--corpus", "d"], ["--checkpoint-dir", "d"],
-             ["--strategy", "dfs"], ["--enable-iprof"], ["--plugin-dir", "d"]]
+CUT_FLAGS = [["--corpus", "d"], ["-a", "0x" + "11" * 20], ["--rpc", "http://localhost:1"],
+             ["--call-depth-limit", "3"]]
+FORMER_CUTS = [["--checkpoint-dir"], ["--strategy", "dfs"], ["--enable-iprof"],
+               ["--plugin-dir"]]
 CREATION_ARGS = ["--limits-profile", "test", "--lanes-per-contract", "16", "--max-steps", "384"]
 
 
@@ -65,6 +68,14 @@ def _compute(path):
                       "--lanes-per-contract", "16", "--max-steps", "192")
     for flag in CUT_FLAGS:
         res["cut", flag[0]] = cli("analyze", "-c", "00", "--device", "cpu", *flag)
+    import tempfile
+
+    for flag in FORMER_CUTS:
+        if flag[0] in ("--checkpoint-dir", "--plugin-dir"):
+            flag = [flag[0], tempfile.mkdtemp()]
+        res["former", flag[0]] = cli("analyze", "-c", "6001600055", "--device", "cpu",
+                                     "-o", "json", *flag, "--limits-profile", "test",
+                                     "--lanes-per-contract", "4", "--max-steps", "16")
     res["version"] = cli("version")
     res["detectors"] = cli("list-detectors")
     torch_port_child.dump(res, path)
@@ -119,6 +130,15 @@ def test_cli_device_cpu_json(res):
 def test_cli_refuses_the_cuts(res, flag):
     rc, _, err = res["cut", flag]
     assert rc == 2 and "not supported" in err
+
+
+@pytest.mark.parametrize("flag", [f[0] for f in FORMER_CUTS])
+def test_cli_runs_the_former_cuts(res, flag):
+    rc, out, err = res["former", flag]
+    assert rc == 0, err[-2000:]
+    assert json.loads(out)["coverage"]["lanes"] == 4
+    if flag == "--enable-iprof":
+        assert "Instruction profile" in err and "SSTORE" in err
 
 
 def test_version_and_list_detectors(res):

@@ -95,6 +95,21 @@ def test_chip_smoke_systems_equal_the_test_fixtures():
         (tpf.REALWORLD, tpf.CONFIG4, tpf.COVERAGE_KEYS)
     assert smoke.realworld_system() == tpf.realworld_system()
     assert smoke.config4_system() == tpf.config4_system()
+    assert smoke.forkblock_system() == tpf.forkblock_system()
+    assert smoke.STRATEGIES == tpf.STRATEGIES
+
+
+def _sweep_args(torch):
+    P, T, C = 4, 8, 4
+    i32 = lambda *s: torch.zeros(s, dtype=torch.int32)
+    words = lambda: torch.zeros((P, T, 8), dtype=torch.int64)
+    return [i32(P, T), i32(P, T), i32(P, T), words(), i32(P), i32(P), words(), words(),
+            words(), words(), i32(P, C), torch.zeros((P, C), dtype=torch.bool), i32(P)]
+
+
+def _fork_args(torch):
+    flags = [torch.zeros(4, dtype=torch.bool)] * 2
+    return flags + [torch.zeros(4, dtype=torch.int32)] * 8 + [None]
 
 
 def _compute(path):
@@ -114,6 +129,13 @@ def _compute(path):
         "sha256": lambda: kernels.sha256(torch.zeros((4, 64), dtype=torch.uint8),
                                          torch.zeros(4, dtype=torch.int32)),
         "modexp_u256": lambda: kernels.modexp_u256(cpu, cpu, cpu),
+        "mul_u256": lambda: kernels.mul_u256(cpu, cpu, "wide"),
+        "mod_wide_u256": lambda: kernels.mod_wide_u256(torch.zeros((4, 16), dtype=torch.int64),
+                                                       cpu),
+        "exp_u256": lambda: kernels.exp_u256(cpu, cpu),
+        "propagate_sweep": lambda: kernels.propagate_sweep(*_sweep_args(torch)),
+        "fork_plan": lambda: kernels.fork_plan(*_fork_args(torch), block=4, policy="beam",
+                                               n_con=4, n_stack=8, defer=True),
     }
     for name, call in calls.items():
         try:
@@ -137,7 +159,9 @@ def test_entry_points_default_to_the_card(res):
         assert "no CUDA device" in res["default"]
 
 
-@pytest.mark.parametrize("kernel", ["divmod_u256", "sha256", "modexp_u256"])
+@pytest.mark.parametrize("kernel", ["divmod_u256", "sha256", "modexp_u256", "mul_u256",
+                                    "mod_wide_u256", "exp_u256", "propagate_sweep",
+                                    "fork_plan"])
 def test_cuda_tensor_never_falls_back_to_plain(res, kernel):
     # a kernel wrapper takes CUDA tensors only (and raises on anything
     # else); the routing functions send a CUDA tensor nowhere but here

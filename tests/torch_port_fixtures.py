@@ -21,9 +21,23 @@ it), assembled with the port's assembler (there is no solc here).
   caller whose preimage hashes to the deposit root.
 
 Files: ``tests/fixtures/torch_port/precompiles.bin`` (creation) and
-``precompiles.bin-runtime``. Regenerate them and the pinned JAX reports
-with ``JAX_PLATFORMS=cpu python tests/torch_port_fixtures.py`` (the
-reports take minutes on a CPU).
+``precompiles.bin-runtime``.
+
+``arith``: a token sale in the solc shape with real arithmetic, so the
+u256 product family runs on the main path: ``buy(n)`` charges an
+unchecked ``n * price`` (MUL, an SWC-101 overflow), ``scale(d)`` computes
+``amount * 10 ** d`` (EXP), ``fee(a)`` takes ``mulmod(a, 30, 10000)`` and
+``addmod(a, fee, 2^255 + 19)`` (MULMOD, ADDMOD). ``tier(x)`` (first in the
+dispatcher) branches on six bits of its argument and ``bonus(x)`` (last)
+on four, so one lane's 64 + 16 paths saturate the 64 lanes of a
+contract, shallow and deep requests compete, and the fork strategies
+admit different survivors; the path with all bits set ends in a failing
+assertion in each. File:
+``tests/fixtures/torch_port/arith.bin-runtime``.
+
+Regenerate the fixtures and the pinned JAX reports with
+``JAX_PLATFORMS=cpu python tests/torch_port_fixtures.py`` (the reports
+take minutes on a CPU; each runs in its own process).
 """
 
 import json
@@ -128,6 +142,64 @@ def precompiles_creation() -> bytes:
     return _assemble(*_constructor(len(runtime), ctor_len)) + runtime
 
 
+SEL_BUY = 0xD96A094A    # buy(uint256)
+SEL_SCALE = 0x2BEC1547  # scale(uint256)
+SEL_FEE = 0x39B37AB0    # fee(uint256)
+SEL_TIER = 0x6DDA34DB   # tier(uint256)
+SEL_BONUS = 0x24749B59  # bonus(uint256)
+PRICE_SLOT, SOLD_SLOT, SCALED_SLOT, FEE_SLOT, NET_SLOT, TIER_SLOT, BONUS_SLOT = range(1, 8)
+FEE_BPS = 30
+FEE_MOD = (1 << 255) + 19
+
+
+def _bit_tests(name, n_bits):
+    """``n_bits`` independent tests of bits of the first argument (2^n
+    paths), then a failing assertion (INVALID) on the path with all of
+    them set, reached only if every fork copy on the way was admitted."""
+    out = []
+    for i in range(n_bits):
+        out += [4, "CALLDATALOAD", 1 << i, "AND", ("ref", f"{name}{i}"), "JUMPI",
+                ("label", f"{name}{i}")]
+    mask = (1 << n_bits) - 1
+    return out + [4, "CALLDATALOAD", mask, "AND", mask, "EQ", ("ref", f"{name}_all"), "JUMPI"]
+
+
+def arith_runtime() -> bytes:
+    return _assemble(
+        0, "CALLDATALOAD", 0xE0, "SHR",
+        "DUP1", SEL_TIER, "EQ", ("ref", "tier"), "JUMPI",
+        "DUP1", SEL_BUY, "EQ", ("ref", "buy"), "JUMPI",
+        "DUP1", SEL_SCALE, "EQ", ("ref", "scale"), "JUMPI",
+        "DUP1", SEL_FEE, "EQ", ("ref", "fee"), "JUMPI",
+        "DUP1", SEL_BONUS, "EQ", ("ref", "bonus"), "JUMPI",
+        0, 0, "REVERT",
+        # tier(x): six bit tests, 64 paths (the shallowest fork requests)
+        ("label", "tier"), "POP", *_bit_tests("t", 6),
+        4, "CALLDATALOAD", TIER_SLOT, "SSTORE", "STOP",
+        ("label", "t_all"), "INVALID",
+        # buy(n): balances[caller] = n * price (unchecked); sold += n
+        ("label", "buy"), "POP",
+        PRICE_SLOT, "SLOAD", 4, "CALLDATALOAD", "MUL", "CALLER", "SSTORE",
+        4, "CALLDATALOAD", SOLD_SLOT, "SLOAD", "ADD", SOLD_SLOT, "SSTORE", "STOP",
+        # scale(d): scaled = amount * 10 ** d
+        ("label", "scale"), "POP",
+        4, "CALLDATALOAD", 10, "EXP", 36, "CALLDATALOAD", "MUL", SCALED_SLOT, "SSTORE", "STOP",
+        # fee(a): fee = mulmod(a, 30, 10000); net = addmod(a, fee, 2^255 + 19)
+        ("label", "fee"), "POP",
+        ("push2", 10000), FEE_BPS, 4, "CALLDATALOAD", "MULMOD",
+        ("push32", FEE_MOD), "DUP2", 4, "CALLDATALOAD", "ADDMOD", NET_SLOT, "SSTORE",
+        FEE_SLOT, "SSTORE", "STOP",
+        # bonus(x): four bit tests, 16 paths (the deepest fork requests)
+        ("label", "bonus"), "POP", *_bit_tests("b", 4),
+        4, "CALLDATALOAD", BONUS_SLOT, "SSTORE", "STOP",
+        ("label", "b_all"), "INVALID",
+    )
+
+
+def arith_file():
+    return os.path.join(FIXTURE_DIR, "arith.bin-runtime")
+
+
 def precompiles_files():
     return (os.path.join(FIXTURE_DIR, "precompiles.bin"),
             os.path.join(FIXTURE_DIR, "precompiles.bin-runtime"))
@@ -139,6 +211,8 @@ def _write_fixture():
         fh.write(precompiles_creation().hex())
     with open(runtime_p, "w") as fh:
         fh.write(precompiles_runtime().hex())
+    with open(arith_file(), "w") as fh:
+        fh.write(arith_runtime().hex())
 
 
 # ---------------------------------------------------------------------------
@@ -147,6 +221,10 @@ def _write_fixture():
 
 REALWORLD = [("Eip1167Proxy", "eip1167proxy"), ("Erc20Full", "erc20full"),
              ("Erc721", "erc721"), ("Multisig2of3", "multisig2of3")]
+STRATEGIES = ("bfs", "dfs", "naive-random", "weighted-random", "coverage", "beam")
+# the arith test-profile CLI runs of the CPU tests
+ARITH_TEST_ARGS = ["--limits-profile", "test", "--lanes-per-contract", "16",
+                   "--max-steps", "192"]
 CONFIG4 = ["Caller", "Router", "Vault"]
 COVERAGE_KEYS = ("lanes", "surviving_paths", "dropped_forks", "killed_infeasible",
                  "lanes_errored", "instruction_coverage_pct")
@@ -155,6 +233,13 @@ COVERAGE_KEYS = ("lanes", "surviving_paths", "dropped_forks", "killed_infeasible
 def read_hex(path):
     with open(path) as fh:
         return bytes.fromhex(fh.read().strip().removeprefix("0x"))
+
+
+def forkblock_system():
+    """The fork-block batch: arith beside three of the real-world runtimes."""
+    rw = dict(realworld_system())
+    return [("Arith", read_hex(arith_file()))] + [(n, rw[n]) for n in
+                                                   ("Erc20Full", "Erc721", "Multisig2of3")]
 
 
 def realworld_system():
@@ -180,10 +265,17 @@ def wrapper_doc(report) -> dict:
 def _pin_cli(name, argv):
     import subprocess
 
-    out = subprocess.run([sys.executable, "-m", "mythril_tpu", "analyze", *argv, "-o", "json"],
-                         cwd=ROOT, capture_output=True, text=True, check=True).stdout
+    res = subprocess.run([sys.executable, "-m", "mythril_tpu", "analyze", *argv, "-o", "json"],
+                         cwd=ROOT, capture_output=True, text=True, check=True)
+    if "--enable-iprof" in argv:
+        # the profile table is the last block of stderr (the report is the
+        # one without the profiler)
+        table = res.stderr[res.stderr.index("Instruction profile"):]
+        with open(os.path.join(FIXTURE_DIR, f"{name}.txt"), "w") as fh:
+            fh.write(table)
+        return
     with open(os.path.join(FIXTURE_DIR, f"{name}.json"), "w") as fh:
-        json.dump(json.loads(out), fh, indent=1, sort_keys=True)
+        json.dump(json.loads(res.stdout), fh, indent=1, sort_keys=True)
 
 
 def _pin_wrapper(name):
@@ -198,6 +290,15 @@ def _pin_wrapper(name):
         system = config4_system()
         sym = SymExecWrapper([r for _, _, r in system], contract_names=[n for n, _, _ in system],
                              creation_bytecodes=[c for _, c, _ in system], **kw)
+    elif name == "arith_berlin":
+        import dataclasses
+
+        kw["limits"] = dataclasses.replace(DEFAULT_LIMITS, gas_schedule="berlin")
+        sym = SymExecWrapper([read_hex(arith_file())], contract_names=["MAIN"], **kw)
+    elif name == "forkblock4_default":
+        system = forkblock_system()
+        sym = SymExecWrapper([c for _, c in system], contract_names=[n for n, _ in system],
+                             fork_block=64, **kw)
     else:
         system = realworld_system()
         sym = SymExecWrapper([c for _, c in system], contract_names=[n for n, _ in system],
@@ -220,13 +321,22 @@ def main(names):
                              "--limits-profile", "test", "--lanes-per-contract", "16",
                              "--max-steps", "384"],
     }
+    if names == ["--fixtures-only"]:
+        return _write_fixture()
+    arith = os.path.join("tests", "fixtures", "torch_port", "arith.bin-runtime")
+    for strat in STRATEGIES:
+        cli[f"arith_{strat}"] = ["-f", arith, "--strategy", strat]
+        cli[f"arith_{strat}_test"] = ["-f", arith, "--strategy", strat, *ARITH_TEST_ARGS]
+    cli["arith_iprof"] = ["-f", arith, "--enable-iprof"]
+    cli["arith_iprof_test"] = ["-f", arith, "--enable-iprof", *ARITH_TEST_ARGS]
     if len(names) == 1 and names[0] in cli:
         return _pin_cli(names[0], cli[names[0]])
     if len(names) == 1:
         return _pin_wrapper(names[0])
     _write_fixture()
     procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), n])
-             for n in (names or [*cli, "config4_default", "realworld4_default"])]
+             for n in (names or [*cli, "config4_default", "realworld4_default",
+                                 "arith_berlin", "forkblock4_default"])]
     if any(p.wait() for p in procs):
         raise SystemExit(1)
 
