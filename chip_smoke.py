@@ -7,7 +7,7 @@ Phases, each fatal on failure:
 
 1. device: the card's name and power limit (``nvidia-smi``); exits
    non-zero without CUDA;
-2. build: compiles the CUDA kernels (K1-K9) from ``mythril_tpu_torch/
+2. build: compiles the CUDA kernels (K1-K10) from ``mythril_tpu_torch/
    kernels/csrc`` with nvcc, in parallel;
 3. kernels: each kernel against its plain PyTorch version on the card
    (K1-K4 and K6-K9 at the main path's width, P = 2048 lanes; K5 on 64
@@ -15,8 +15,15 @@ Phases, each fatal on failure:
    cases; bit-for-bit equality is required, and K4/K5/K8/K9 also against
    hashlib / Python's ints. K6 on random tapes holding every op and on
    the frontier of a real batch just before a sweep; K7 for each policy
-   at fork blocks of 64 lanes and of P. Times each kernel, its plain
-   version and the bound the card's rates put on the same work;
+   at fork blocks of 64 lanes and of P. K10 (the concrete EVM step)
+   against ``superstep_plain`` / ``prologue_plain`` / ``dispatch_plain``
+   / ``epilogue_plain`` (whose arithmetic and SHA3 are plain PyTorch on
+   the card too) over every frontier field: the vmtests batch
+   stepped to quiescence, a seeded random-opcode stress batch of 4096
+   lanes (edge words of every class, every trap) under both gas
+   schedules with the profiler on and a random ``skip`` mask, and the
+   ERC-20 transfer run. Times each kernel, its plain version and the
+   bound the card's rates put on the same work;
 4. goldens: the 20 golden fixtures at the goldens' settings (test
    limits, 16 lanes, 192 steps), the real-world batch and BASELINE
    config 4 at their tests' limits, issue for issue against
@@ -26,8 +33,10 @@ Phases, each fatal on failure:
    ``tests/fixtures/torch_port/*_default.json``: (a) the realworld ERC-20
    and ERC-721 runtimes; (b) the 2-of-3 multisig (CALL) and the
    precompile fixture with ``--creation-code`` (SHA-256 and MODEXP in its
-   constructor: K4 and K5 must launch there). Launch counts are zeroed
-   just before each part and read just after;
+   constructor: K4 and K5 must launch there). K10's prologue, dispatch
+   and epilogue must launch on every analyze (the concrete MUL, DIV, EXP,
+   MULMOD and SHA3 run inside K10, so K1, K2, K8 and K9 no longer do).
+   Launch counts are zeroed just before each part and read just after;
 6. frames at full width through ``SymExecWrapper``: BASELINE config 4
    (caller -> router -> vault, creation tx + 2 message txs, default
    limits, 64 lanes per contract, 512 steps) and the 4-contract
@@ -43,12 +52,18 @@ Phases, each fatal on failure:
    of the six strategies, bfs with ``--enable-iprof`` (the profile table
    too); the berlin gas schedule; the arith/ERC-20/ERC-721/multisig batch in fork
    blocks of 64 lanes with spill and in-loop migration; a checkpointed
-   run resumed mid-transaction from its npz. K8/K9 must launch on the
-   arith runs, K7 on every run, and K6 once per feasibility sweep;
+   run resumed mid-transaction from its npz. K10 and K7 must launch on
+   every run, and K6 once per feasibility sweep;
 8. profile (measurement only, after the counted runs): the engine's
    loop stages timed between synchronizations, and a torch.profiler
    window (16 supersteps of the batch) for the device's busy share and
-   its top kernels.
+   its top kernels;
+10. concrete path, run first after the kernel checks: ``run`` on the
+   ERC-20 transfer workload (4096 lanes, default limits, 256 steps), one
+   fused K10 launch and one host read per superstep; every lane halts
+   without error or revert after the step count the reference EVM pins,
+   and the frontier equals ``run_plain``'s. Lane-steps/s and host syncs
+   per superstep.
 
 Prints a ``kernels`` JSON line, the card line, and last
 ``{"ok": true, "device": {...}}``.
@@ -228,6 +243,252 @@ def check_report(what, issues, coverage, want):
 
 
 # ---------------------------------------------------------------------------
+# K10 inputs: the vmtests batch and a seeded random-opcode stress batch
+# (tests/test_torch_evm_step.py builds the same batches at the test limits)
+# ---------------------------------------------------------------------------
+
+W256 = (1 << 256) - 1
+
+
+def vmtests_batch(limits, device="cpu"):
+    """(frontier, env, corpus): every VM vector of tests/fixtures/
+    vmtests.json, one lane each, at its own gas limit."""
+    from mythril_tpu_torch.core import Corpus, make_env, make_frontier
+    from mythril_tpu_torch.disassembler import ContractImage
+
+    doc = load_json("vmtests.json")
+    names = sorted(doc["tests"])
+    codes = [bytes.fromhex(doc["tests"][n]["exec"]["code"]) for n in names]
+    P = len(names)
+    calldata = np.zeros((P, limits.calldata_bytes), np.uint8)
+    cd_len = np.zeros(P, np.int32)
+    for i, n in enumerate(names):
+        blob = bytes.fromhex(doc["tests"][n]["exec"].get("data", ""))
+        calldata[i, :len(blob)] = np.frombuffer(blob, dtype=np.uint8)
+        cd_len[i] = len(blob)
+    corpus = Corpus.from_images([ContractImage.from_bytecode(c, limits.max_code)
+                                 for c in codes], device)
+    f = make_frontier(P, limits, contract_id=np.arange(P, dtype=np.int32), calldata=calldata,
+                      calldata_len=cd_len, gas_limit=doc["gasLimit"], n_contracts=P,
+                      device=device)
+    return f, make_env(P, device=device), corpus
+
+
+def _edge_cases(M, S):
+    """(opcode, stack words top first, lane tweaks) for the scripted lanes
+    of the stress batch: the edge words of each class and every trap."""
+    big = 1 << 64
+    sat = big - 1  # saturates to 2^64 - 1 = -1 in the int64 offsets
+    return [
+        (0x05, [1 << 255, W256], {}), (0x04, [5, 0], {}), (0x06, [5, 0], {}),
+        (0x07, [W256, 3], {}), (0x07, [3, W256], {}), (0x05, [W256 - 6, 3], {}),
+        (0x1B, [256, 1], {}), (0x1B, [big, 1], {}), (0x1B, [255, 1], {}),
+        (0x1C, [300, W256], {}), (0x1C, [1, W256], {}), (0x1D, [256, 1 << 255], {}),
+        (0x1D, [255, 1 << 255], {}), (0x1D, [0, 1 << 255], {}), (0x1D, [4, 1 << 254], {}),
+        (0x1D, [1, 1 << 255], {}), (0x1D, [33, W256 - 5], {}), (0x1B, [1, W256], {}),
+        (0x1C, [32, W256], {}),
+        (0x1A, [32, W256], {}), (0x1A, [31, 0x1FF], {}), (0x1A, [1 << 70, 5], {}),
+        (0x0B, [31, 1 << 255], {}), (0x0B, [30, 0x80 << 240], {}), (0x0B, [0, 0x80], {}),
+        (0x0B, [big, 5], {}), (0x0B, [0, 0x7F], {}), (0x12, [W256, 1], {}),
+        (0x13, [W256, 1], {}), (0x19, [5], {}), (0x03, [0, 1], {}), (0x01, [W256, 2], {}),
+        (0x20, [0, 300], {}), (0x20, [sat, 1], {}), (0x20, [M - 10, 64], {}),
+        (0x20, [0, 0], {}), (0x20, [5, 200], {}), (0x20, [big, 5], {}), (0x20, [3, big], {}),
+        (0x20, [0, 136], {}), (0x20, [7, 135], {}), (0x20, [1 << 63, 1 << 63], {}),
+        (0x37, [sat, 0, 5], {}), (0x37, [0, sat, 8], {}), (0x37, [10, 0, sat], {}),
+        (0x37, [M - 3, 0, 8], {}), (0x37, [4, 2, 40], {}), (0x37, [1 << 63, 0, 1 << 63], {}),
+        (0x37, [M - 8, 0, 8], {}), (0x39, [M - 1, 0, 1], {}), (0x3E, [M - 8, 0, 8], {}),
+        (0x39, [0, 0, 40], {}), (0x39, [2, 1 << 63, 9], {}), (0x39, [0, 0, 64], {"init": True}),
+        (0x3E, [1, 3, 50], {}), (0x3C, [0xAFFE, 0, 0, 70], {}), (0x3C, [0xBEEF, 8, 0, 10], {}),
+        (0x51, [sat], {}), (0x51, [M - 32], {}), (0x51, [M - 31], {}), (0x52, [M - 32, W256], {}),
+        (0x52, [M - 31, 7], {}), (0x52, [sat, 0x1234], {}), (0x53, [M - 1, 0x1FF], {}),
+        (0x53, [sat, 0xAB], {}), (0x53, [M, 1], {}),
+        (0x0A, [2, 255], {}), (0x0A, [3, W256], {}), (0x0A, [0, 0], {}), (0x0A, [W256, 2], {}),
+        (0x09, [W256, W256, 0], {}), (0x09, [W256, W256, 7], {}), (0x08, [W256, W256, W256 - 1], {}),
+        (0x08, [1, 2, 0], {}), (0x09, [1 << 255, 3, (1 << 255) + 19], {}),
+        (0xF3, [0, 300], {}), (0xFD, [sat, 2], {}), (0xF3, [M - 4, 8], {}), (0xF3, [0, 0], {}),
+        (0xFD, [5, 7], {}), (0x00, [], {}), (0xFE, [], {}), (0xFF, [1], {"static": True}),
+        (0xFF, [1], {}),
+        (0xA2, [0, 32, 7, 9], {}), (0xA0, [3, 40], {}), (0xA1, [0, 8, 5], {"n_logs": "full"}),
+        (0xA1, [sat, 2, 5], {}), (0xA0, [0, 4], {"static": True}),
+        (0x56, ["jd"], {}), (0x57, [3, 1], {}), (0x57, [3, 0], {}), (0x56, [sat], {}),
+        (0x57, ["jd", 5], {}), (0x56, ["jd"], {"init": True}),
+        (0x54, [1], {}), (0x55, [1, 99], {}), (0x55, [2, 5], {"static": True}),
+        (0x55, [W256, 5], {"storage": "full"}), (0x55, [1, 6], {"storage": "full"}),
+        (0xF1, [0xFFFF, 1, 0, 0, 0, 0, 0], {}), (0xFA, [0xFFFF, 1, 0, 0, 0, 0], {}),
+        (0xF0, [0, 0, 40], {}), (0xF5, [0, M - 2, 40, 1], {}),
+        (0x5A, [], {}), (0x58, [], {}), (0x59, [], {}), (0x8F, list(range(1, 17)), {}),
+        (0x9F, list(range(1, 18)), {}), (0x80, [9], {}), (0x50, [3], {}), (0x5B, [], {}),
+        (0x5F, [], {}), (0x31, [0xAFFE], {}), (0x31, [0x1234], {}), (0x3B, [0xAFFE], {}),
+        (0x3B, [0xBEEF], {}), (0x3F, [0xAFFE], {}), (0x3F, [0xBEEF], {}), (0x3F, [0xC0DE], {}),
+        (0x3F, [0x1234], {}), (0x35, [sat], {}), (0x35, [2], {}), (0x35, [1 << 63], {}),
+        (0x36, [], {}), (0x38, [], {"init": True}), (0x38, [], {}), (0x3D, [], {}),
+        (0x47, [], {}), (0x30, [], {}), (0x33, [], {}), (0x34, [], {}), (0x40, [1], {}),
+        (0x46, [], {}), (0x48, [], {}),
+        (0x01, [1], {"sp": 1}), (0x60, [], {"sp": S}), (0x80, [], {"sp": S}),
+        (0x01, [1, 2], {"oog": True}), (0x20, [0, 64], {"oog": True}), (0x0C, [], {}),
+        (0x01, [1, 2], {"pc_hold": True}), (0x56, ["jd"], {"pc_hold": True}),
+    ]
+
+
+def evm_stress_batch(P, limits, rng, device="cpu"):
+    """(frontier, env, corpus): a seeded random-opcode stress batch of P
+    lanes for K10. The first lanes are scripted (``_edge_cases``: each
+    class's edge words — division by zero, SDIV overflow, shifts >= 256,
+    BYTE >= 32, SIGNEXTEND >= 31, offsets near 2^64, copy lengths that
+    wrap, SHA3 past the hash cap — and every trap: stack under- and
+    overflow, OOG, static writes, full storage and log slots); the rest
+    run random code over random stacks, memory, storage, accounts,
+    constructor frames and trap states. The instruction profiler is on."""
+    from mythril_tpu_torch.core import Corpus, make_env, make_frontier
+    from mythril_tpu_torch.core.frontier import Frontier
+    from mythril_tpu_torch.disassembler import ContractImage
+    from mythril_tpu_torch.ops import u256
+
+    L = limits
+    S, M, K, A, LS, IC = (L.max_stack, L.mem_bytes, L.storage_slots, L.max_accounts,
+                          L.log_slots, L.init_code_bytes)
+    cases = _edge_cases(M, S)
+    # corpus: 0 = the script (each edge opcode once, a JUMPDEST at 3, a
+    # PUSH32 cut by the end of code), 1..7 = random code dense in
+    # JUMPDESTs and PUSHes
+    script = bytearray([0x5B] * 4)
+    case_pc = []
+    for op, _, _ in cases:
+        case_pc.append(len(script))
+        script.append(op)
+    script += bytes([0x7F, 0xAB, 0xCD])
+    codes = [bytes(script)]
+    for _ in range(7):
+        n = int(rng.integers(40, 300))
+        b = rng.integers(0, 256, n).astype(np.uint8)
+        b[rng.random(n) < 0.1] = 0x5B
+        codes.append(b.tobytes())
+    C = len(codes)
+    images = [ContractImage.from_bytecode(c, L.max_code) for c in codes]
+    corpus = Corpus.from_images(images, device)
+    n_case = len(cases)
+    cid = rng.integers(1, C, P).astype(np.int32)
+    cid[:n_case] = 0
+    calldata = rng.integers(0, 256, (P, L.calldata_bytes)).astype(np.uint8)
+    cd_len = rng.integers(0, L.calldata_bytes + 1, P).astype(np.int32)
+    f = make_frontier(P, L, contract_id=cid, calldata=calldata, calldata_len=cd_len,
+                      n_contracts=C).attach_iprof().to_numpy()
+
+    def word(v):
+        return u256.from_int(int(v))
+
+    pool = [0, 1, 2, 3, 31, 32, 33, 64, 255, 256, 257, 1 << 63, (1 << 64) - 1, 1 << 64,
+            1 << 128, 1 << 255, W256, W256 - 1, (1 << 255) - 1, 0xAFFE, 0xBEEF, 0xC0DE,
+            0xDEADBEEFDEADBEEFDEADBEEFDEADBEEFDEADBEEF, M - 32, M - 1, M, 100, 4, 5, 7]
+    pool_w = np.stack([word(v) for v in pool])
+    rand_w = rng.integers(0, 1 << 32, (P, S, 8), dtype=np.int64).astype(np.uint32)
+    pick = rng.integers(0, len(pool), (P, S))
+    use_pool = rng.random((P, S)) < 0.7
+    stack = np.where(use_pool[..., None], pool_w[pick], rand_w)
+    small = rng.random((P, S)) < 0.4
+    stack[small] = 0
+    stack[small, 0] = rng.integers(0, 80, int(small.sum()))
+    f.stack = stack.astype(np.uint32)
+    f.sp = rng.integers(0, S + 1, P).astype(np.int32)
+    f.sp_base = np.where(rng.random(P) < 0.2, rng.integers(0, 4, P), 0).astype(np.int32)
+    f.sp_base = np.minimum(f.sp_base, f.sp).astype(np.int32)
+    f.pc = np.array([int(rng.integers(0, len(codes[c]) + 3)) for c in cid], dtype=np.int32)
+    f.memory = rng.integers(0, 256, (P, M)).astype(np.uint8)
+    f.mem_words = rng.integers(0, M // 32 + 1, P).astype(np.int32)
+    f.gas_min = rng.integers(0, 50_000, P).astype(np.int64)
+    f.gas_max = f.gas_min + rng.integers(0, 5_000, P)
+    f.gas_limit = np.where(rng.random(P) < 0.2, f.gas_min + rng.integers(0, 40, P),
+                           10_000_000).astype(np.int64)
+    # storage: keys from a small set (hits), scoped to this or another account
+    f.st_used = rng.random((P, K)) < 0.5
+    f.st_keys = pool_w[rng.integers(0, 8, (P, K))].astype(np.uint32)
+    f.st_vals = rng.integers(0, 1 << 32, (P, K, 8), dtype=np.int64).astype(np.uint32)
+    f.st_acct = (f.cur_acct[:, None] + (rng.random((P, K)) < 0.2)).astype(np.int32)
+    f.st_written = rng.random((P, K)) < 0.5
+    f.static = rng.random(P) < 0.2
+    # accounts: a codeless one (0xBEEF), one with code outside the corpus
+    # (0xC0DE), the rest as make_frontier seeded them
+    f.acct_addr[:, A - 1] = word(0xBEEF)
+    f.acct_code[:, A - 1] = -1
+    f.acct_used[:, A - 1] = True
+    f.acct_bal[:, A - 1] = word(12345)
+    if A > 4:
+        f.acct_addr[:, A - 2] = word(0xC0DE)
+        f.acct_code[:, A - 2] = -2
+        f.acct_used[:, A - 2] = True
+    rd = L.returndata_bytes
+    f.returndata = rng.integers(0, 256, (P, rd)).astype(np.uint8)
+    f.returndata_len = rng.integers(0, rd + 1, P).astype(np.int32)
+    f.retval = rng.integers(0, 256, (P, rd)).astype(np.uint8)
+    f.retval_len = rng.integers(0, rd + 1, P).astype(np.int32)
+    f.n_logs = rng.integers(0, LS + 2, P).astype(np.int32)
+    f.pc_hold = rng.random(P) < 0.1
+    f.n_steps = rng.integers(0, 100, P).astype(np.int32)
+    f.op_hist = rng.integers(0, 5, (P, 256)).astype(np.int32)
+    # constructor frames: init code in the frame's own buffer
+    init = rng.random(P) < 0.15
+    f.depth = np.where(init, 1, f.depth).astype(np.int32)
+    f.init_depth = np.where(init, 1, 0).astype(np.int32)
+    f.init_code = rng.integers(0, 256, (P, IC)).astype(np.uint8)
+    f.init_len = rng.integers(0, IC + 1, P).astype(np.int32)
+    f.init_jd = rng.random((P, IC)) < 0.3
+    f.pc = np.where(init, rng.integers(0, IC + 2, P), f.pc).astype(np.int32)
+    # lanes that do not run: inactive, halted, errored
+    state = rng.random(P)
+    f.active = state >= 0.03
+    f.halted = (state >= 0.03) & (state < 0.06)
+    f.error = (state >= 0.06) & (state < 0.09)
+    f.err_code = np.where(f.error, rng.integers(1, 13, P), 0).astype(np.int32)
+    # the scripted lanes
+    jd = 3
+    for i, (op, words, tw) in enumerate(cases):
+        f.active[i], f.halted[i], f.error[i], f.err_code[i] = True, False, False, 0
+        f.pc_hold[i] = tw.get("pc_hold", False)
+        f.static[i] = tw.get("static", False)
+        f.depth[i] = f.init_depth[i] = 0
+        f.pc[i] = case_pc[i]
+        if tw.get("init"):
+            f.depth[i] = f.init_depth[i] = 1
+            f.init_code[i, :] = 0
+            f.init_code[i, 0] = op
+            f.init_code[i, 1:3] = 0x5B
+            f.init_jd[i, :] = False
+            f.init_jd[i, 2] = True
+            f.init_len[i] = 80
+            f.pc[i] = 0
+        sp = tw.get("sp", len(words) + 2)
+        f.sp[i], f.sp_base[i] = sp, 0
+        for k, v in enumerate(words):
+            v = (2 if tw.get("init") else jd) if v == "jd" else v
+            f.stack[i, sp - 1 - k] = word(v)
+        if tw.get("oog"):
+            f.gas_limit[i] = f.gas_max[i] = f.gas_min[i]
+        if tw.get("n_logs") == "full":
+            f.n_logs[i] = LS
+        if tw.get("storage") == "full":
+            f.st_used[i] = True
+            f.st_acct[i] = f.cur_acct[i]
+            f.st_keys[i] = np.stack([word(0x5000 + k) for k in range(K)])
+        elif op in (0x54, 0x55):
+            f.st_keys[i, 0], f.st_used[i, 0], f.st_acct[i, 0] = word(1), True, f.cur_acct[i]
+    f = Frontier.from_numpy(f, device)
+    return f, make_env(P, device=device), corpus
+
+
+def frontier_errs(got, want) -> dict:
+    """max_abs_err of every frontier field (-1 for a shape or presence
+    mismatch)."""
+    out = {}
+    for fl in dataclasses.fields(want):
+        a, b = getattr(got, fl.name), getattr(want, fl.name)
+        if a is None or b is None:
+            out[fl.name] = 0 if a is None and b is None else -1
+        else:
+            out[fl.name] = max_abs_err(a, b)
+    return out
+
+
+# ---------------------------------------------------------------------------
 # timing
 # ---------------------------------------------------------------------------
 
@@ -245,6 +506,52 @@ def time_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def time_owned(launch, f, entry: str, reps: int) -> float:
+    """Mean ms of ``launch(g)`` over ``reps`` fresh copies ``g`` of the
+    fields ``entry`` writes in ``f``, each copy made outside the timed
+    window (the launch runs in place on it)."""
+    import torch
+    from mythril_tpu_torch import kernels
+
+    launch(kernels.own_evm_fields(f, entry))
+    total = 0.0
+    for _ in range(reps):
+        g = kernels.own_evm_fields(f, entry)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        launch(g)
+        end.record()
+        torch.cuda.synchronize()
+        total += start.elapsed_time(end)
+    return total / reps
+
+
+def device_us(e) -> float:
+    """Self device time (us) of a torch.profiler ``key_averages`` entry."""
+    return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+
+
+def kernel_device_ms(fn, kernel: str, reps: int = 1) -> float:
+    """Mean device time (ms) of one launch of the CUDA kernel whose name
+    holds ``kernel`` over ``reps`` calls of ``fn``, from a torch.profiler
+    trace: the host work of each call (a wrapper's marshaling, which the
+    event times above include while the card idles) is left out; nan
+    when the trace shows no device time for it."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if kernel in e.key]
+    n, us = sum(e.count for e in events), sum(device_us(e) for e in events)
+    return us / n / 1e3 if n and us else float("nan")
 
 
 def max_abs_err(x, y) -> int:
@@ -301,17 +608,16 @@ def check_k1(dev, rng):
     a_vals[-1], b_vals[-1] = 1 << 255, M
     a, b = words_tensor(a_vals, dev), words_tensor(b_vals, dev)
     q, r = kernels.divmod_u256(a, b)
-    qp, rp = u256.divmod_u_plain(a, b)
+    qp, rp = u256.divmod_u(a, b)
     err = max(max_abs_err(q, qp), max_abs_err(r, rp))
-    # the signed wrapper routes through the kernel on the card; its plain
-    # counterpart strips and restores signs around the plain division
-    sd = u256.sdiv(a, b)
+    # SDIV as the step does it: signs stripped around the kernel's unsigned
+    # division and put back, against the plain signed division
     aa, na = u256.abs_signed(a)
     ab, nb = u256.abs_signed(b)
-    qa, _ = u256.divmod_u_plain(aa, ab)
-    sdp = torch.where(u256.is_zero(b)[:, None], 0,
-                      torch.where((na != nb)[:, None], u256.neg(qa), qa))
-    err = max(err, max_abs_err(sd, sdp))
+    qa, _ = kernels.divmod_u256(aa, ab)
+    sd = torch.where(u256.is_zero(b)[:, None], 0,
+                     torch.where((na != nb)[:, None], u256.neg(qa), qa))
+    err = max(err, max_abs_err(sd, u256.sdiv(a, b)))
     # python ints as the final word on a sample
     for i in list(range(8)) + [P_MAIN - 1]:
         x, y = a_vals[i], b_vals[i]
@@ -320,7 +626,7 @@ def check_k1(dev, rng):
         if got != want:
             fail(f"K1 lane {i}: {got} != {want}")
     ms = time_ms(lambda: kernels.divmod_u256(a, b), 50)
-    plain_ms = time_ms(lambda: u256.divmod_u_plain(a, b), 2)
+    plain_ms = time_ms(lambda: u256.divmod_u(a, b), 2)
     nbytes = 4 * P_MAIN * 8 * 8  # a, b in; q, r out (int64 carriers)
     ops = sum(longdiv_ops(x, y) for x, y in zip(a_vals, b_vals))
     return dict(name="divmod_u256", source="mythril_tpu_torch/kernels/csrc/u256_divmod.cu",
@@ -541,7 +847,7 @@ def check_k8(dev, rng):
     a, b = words_tensor(a_v, dev), words_tensor(b_v, dev)
     lo = kernels.mul_u256(a, b, "low")
     wide = kernels.mul_u256(a, b, "wide")
-    err = max(max_abs_err(lo, u256.mul_plain(a, b)), max_abs_err(wide, u256.mul_wide_plain(a, b)))
+    err = max(max_abs_err(lo, u256.mul(a, b)), max_abs_err(wide, u256.mul_wide(a, b)))
     M = (1 << 256) - 1
     got_lo = u256.to_ints(lo)
     got_wide = [x | (y << 256) for x, y in zip(u256.to_ints(wide[:, :8]),
@@ -550,7 +856,7 @@ def check_k8(dev, rng):
         if got_lo[i] != (x * y) & M or got_wide[i] != x * y:
             fail(f"K8 lane {i} disagrees with Python ints")
     ms = time_ms(lambda: kernels.mul_u256(a, b, "low"), 50)
-    plain_ms = time_ms(lambda: u256.mul_plain(a, b), 10)
+    plain_ms = time_ms(lambda: u256.mul(a, b), 10)
     print(f"[3] mul_u256 wide: {time_ms(lambda: kernels.mul_u256(a, b, 'wide'), 50):.4f} ms",
           flush=True)
     # a, b in and the low product out (int64 carriers); 64 multiply-adds
@@ -567,11 +873,11 @@ def check_k9(dev, rng):
 
     a_v, b_v, m_v, e_v = product_words(rng)
     a, b, m, e = (words_tensor(v, dev) for v in (a_v, b_v, m_v, e_v))
-    wide = u256.mul_wide_plain(a, b)
+    wide = u256.mul_wide(a, b)
     r = kernels.mod_wide_u256(wide, m)
-    err_mod = max_abs_err(r, u256._mod_wide_plain(wide, m))
+    err_mod = max_abs_err(r, u256._mod_wide(wide, m))
     x = kernels.exp_u256(a, e)
-    err_exp = max_abs_err(x, u256.exp_plain(a, e))
+    err_exp = max_abs_err(x, u256.exp(a, e))
     got_r, got_x = u256.to_ints(r), u256.to_ints(x)
     for i in range(P_MAIN):
         if got_r[i] != ((a_v[i] * b_v[i]) % m_v[i] if m_v[i] else 0):
@@ -580,13 +886,13 @@ def check_k9(dev, rng):
             fail(f"K9 exp lane {i} disagrees with Python ints")
     # ADDMOD's 9-limb sums through the same entry point
     s, c = u256.add_carry(a, b)
-    wide_add = torch.cat([s, c.to(s.dtype)[:, None]], dim=1)
-    err_mod = max(err_mod, max_abs_err(u256._mod_wide(wide_add, m),
-                                       u256._mod_wide_plain(wide_add, m)))
+    wide_add = torch.cat([s, c.to(s.dtype)[:, None], torch.zeros_like(s)[:, :7]], dim=1)
+    err_mod = max(err_mod, max_abs_err(kernels.mod_wide_u256(wide_add, m),
+                                       u256._mod_wide(wide_add, m)))
     ms_mod = time_ms(lambda: kernels.mod_wide_u256(wide, m), 20)
-    plain_mod = time_ms(lambda: u256._mod_wide_plain(wide, m), 1)
+    plain_mod = time_ms(lambda: u256._mod_wide(wide, m), 1)
     ms_exp = time_ms(lambda: kernels.exp_u256(a, e), 20)
-    plain_exp = time_ms(lambda: u256.exp_plain(a, e), 1)
+    plain_exp = time_ms(lambda: u256.exp(a, e), 1)
     # the remainder of each lane's 512-bit product by its m; EXP's low
     # products (36 multiply-adds of 4 operations each)
     mod_ops = sum(longdiv_ops(x * y, z) for x, y, z in zip(a_v, b_v, m_v))
@@ -825,6 +1131,292 @@ def check_k7(dev, rng):
                 nbytes=P_MAIN * (2 + 8 * 4 + 9 * 4 + 4), ops=ops)
 
 
+# K10's lanes at the concrete path's width (bench.py's P)
+P_K10 = 4096
+K10_SOURCE = "mythril_tpu_torch/kernels/csrc/evm_step.cu"
+K10_REPLACES = {"evm_prologue": "mythril_tpu/core/interpreter.py:744",
+                "evm_dispatch": "mythril_tpu/core/interpreter.py:951",
+                "evm_epilogue": "mythril_tpu/core/interpreter.py:1053",
+                "evm_superstep": "mythril_tpu/core/interpreter.py:1072"}
+
+
+def step_bytes(f, op, run) -> int:
+    """Bytes one EVM step must move for these lanes (int64 carriers: 64
+    bytes a word): per running lane its control fields (65 read, 29
+    written), its operand and result words, the PUSH immediate, and what
+    its class touches — the SHA3 input, the MLOAD/MSTORE word, a copy's
+    window (source read, memory written), RETURN/REVERT's data and retval
+    row, a LOG slot, the storage slots scanned (used flags, then account
+    and key of each used one) and written, the account table a lookup
+    scans, an env word, the JUMPDEST bit; 8 bytes per other lane."""
+    import torch
+    from mythril_tpu_torch.core import interpreter as ci
+    from mythril_tpu_torch.ops import u256
+
+    tb = ci.Tables.on(op.device)
+    opl = op.long()
+    cls = tb.CLASS[opl]
+    M, RD = f.memory.shape[1], f.retval.shape[1]
+    K, A = f.st_used.shape[1], f.acct_used.shape[1]
+
+    def ln(i):
+        return torch.clamp(u256.to_u64_saturating(ci._peek(f, i)), min=0)
+
+    n = 94 + 64 * (tb.STACK_IN[opl] + tb.STACK_OUT[opl]).to(torch.int64) + tb.PUSH_WIDTH[opl]
+    lookup = 65 * A + 64
+    ext = (op == 0x31) | (op == 0x3B) | (op == 0x3F)
+    cp_len = torch.clamp(torch.where(op == 0x3C, ln(3), ln(2)), max=M)
+    data = (op == 0xF3) | (op == 0xFD)
+    by_cls = {
+        ci.CLS_SHA3: torch.clamp(ln(1), max=200),
+        ci.CLS_MEM: torch.where(op == 0x53, 1, 32),
+        ci.CLS_COPY: 2 * cp_len + torch.where(op == 0x3C, lookup, 0),
+        ci.CLS_HALT: torch.where(data, torch.clamp(ln(1), max=RD) + RD + 4, 0),
+        ci.CLS_LOG: torch.full_like(n, 32 + 140),
+        ci.CLS_STORAGE: K + 68 * f.st_used.sum(1) + torch.where(op == 0x55, 134, 64),
+        ci.CLS_ENV: torch.where(ext, lookup, 64),
+        ci.CLS_JUMP: torch.ones_like(n),
+    }
+    extra = torch.zeros_like(n)
+    for c, v in by_cls.items():
+        extra = torch.where(cls == c, v, extra)
+    return int(torch.where(run, n + extra, 8).sum())
+
+
+def step_ops(f, op, run) -> int:
+    """32-bit integer operations of this step's arithmetic lanes (the
+    rest is byte movement): DIV/MOD and ADDMOD/MULMOD a schoolbook long
+    division (``longdiv_ops``), MUL 64 multiply-adds, EXP its
+    square-and-multiply products (36 multiply-adds each), SHA3 ~200
+    64-bit operations per round per absorbed block, 4 operations each."""
+    import torch
+    from mythril_tpu_torch.core import interpreter as ci
+    from mythril_tpu_torch.ops import u256
+
+    cls = ci.Tables.on(op.device).CLASS[op.long()]
+    lanes = torch.nonzero(run & ((cls == ci.CLS_MUL) | (cls == ci.CLS_DIVMOD) |
+                                 (cls == ci.CLS_MODARITH) | (cls == ci.CLS_EXP) |
+                                 (cls == ci.CLS_SHA3))).flatten()
+    if lanes.numel() == 0:
+        return 0
+    w = [u256.to_ints(ci._peek(f, i)[lanes]) for i in range(3)]
+    ops = 0
+    for j, (c, o) in enumerate(zip(cls[lanes].tolist(), op[lanes].tolist())):
+        a, b, m = w[0][j], w[1][j], w[2][j]
+        if c == ci.CLS_MUL:
+            ops += 64 * 4
+        elif c == ci.CLS_DIVMOD:
+            sa = o in (0x05, 0x07)
+            aa = (W256 + 1 - a) & W256 if sa and a >> 255 else a
+            bb = (W256 + 1 - b) & W256 if sa and b >> 255 else b
+            ops += longdiv_ops(aa, bb)
+        elif c == ci.CLS_MODARITH:
+            ops += longdiv_ops(a + b if o == 0x08 else a * b, m)
+        elif c == ci.CLS_EXP:
+            ops += square_multiply_steps(b) * 36 * 4
+        elif b <= 200:  # SHA3 past the cap hashes nothing
+            ops += (b // 136 + 1) * 24 * 200 * 2
+    return ops
+
+
+def check_k10(dev, rng):
+    """K10 against its plain versions on the card, every frontier field
+    with max_abs_err 0: the vmtests batch stepped to quiescence (iprof
+    on); the stress batch at P_K10 lanes under both gas schedules through
+    the fused entry point and through prologue -> dispatch (a random skip
+    mask) -> epilogue; the ERC-20 transfer workload at P_K10 run in place
+    to its end. The plain versions' arithmetic and SHA3 are plain PyTorch
+    on the card too, so they share no device code with K10. Times each
+    entry point in place: the fused one over the ERC-20 run (as ``run``
+    launches it), the split ones on the stress batch's first step, each
+    on fresh copies of the fields it writes, and the copies (which the
+    symbolic superstep makes) on their own."""
+    import torch
+    from mythril_tpu_torch import kernels
+    from mythril_tpu_torch.config import DEFAULT_LIMITS
+    from mythril_tpu_torch.core import interpreter as ci
+    from mythril_tpu_torch.workloads import erc20_transfer_workload
+
+    L = DEFAULT_LIMITS
+    err = dict.fromkeys(K10_REPLACES, 0)
+
+    def note(name, got, want, what):
+        errs = frontier_errs(got, want)
+        bad = {k: e for k, e in errs.items() if e != 0}
+        if bad:
+            print(f"[3] {name} {what}: fields differ from the plain version: {bad}", flush=True)
+            err[name] = max(err[name], max(abs(e) for e in bad.values()), 1)
+
+    # the vmtests batch, step by step to quiescence
+    f, env, corpus = vmtests_batch(L, dev)
+    f = f.attach_iprof()
+    steps = 0
+    while bool(f.running.any()):
+        want = ci.superstep_plain(f, env, corpus)
+        note("evm_superstep", kernels.evm_superstep(f, env, corpus), want, f"vmtests step {steps}")
+        f, steps = want, steps + 1
+    # the stress batch: a few steps, both schedules, fused and split
+    f, env, corpus = evm_stress_batch(P_K10, L, rng, dev)
+    split = {}
+    for step in range(3):
+        for berlin in (False, True):
+            fp, op, run, old_pc = ci.prologue_plain(f, corpus, berlin)
+            kp, kop, krun = kernels.evm_prologue(f, corpus, berlin)
+            note("evm_prologue", kp, fp, f"stress step {step} berlin={berlin}")
+            if not (torch.equal(kop, op) and torch.equal(krun, run)):
+                print(f"[3] evm_prologue stress step {step}: op/run differ", flush=True)
+                err["evm_prologue"] = max(err["evm_prologue"], 1)
+            skip = torch.as_tensor(rng.random(P_K10) < 0.3, device=dev)
+            dp = ci.dispatch_plain(fp, env, corpus, op, run, old_pc, skip=skip)
+            note("evm_dispatch", kernels.evm_dispatch(fp, env, corpus, op, run, old_pc, skip),
+                 dp, f"stress step {step} berlin={berlin} (skip)")
+            ep = ci.epilogue_plain(dp, op, run, old_pc)
+            note("evm_epilogue", kernels.evm_epilogue(dp, op, run, old_pc), ep,
+                 f"stress step {step} berlin={berlin}")
+            want = ci.epilogue_plain(ci.dispatch_plain(fp, env, corpus, op, run, old_pc),
+                                     op, run, old_pc)
+            note("evm_superstep", kernels.evm_superstep(f, env, corpus, berlin), want,
+                 f"stress step {step} berlin={berlin}")
+            if step == 0 and not berlin:
+                split = dict(f=f, fp=fp, dp=dp, op=op, run=run, old_pc=old_pc, skip=skip,
+                             env=env, corpus=corpus)
+        f = want
+    classes = set(ci.CLASS_TABLE[op[run].cpu().numpy()].tolist())
+    print(f"[3] evm stress: {P_K10} lanes, 3 steps x 2 schedules; classes in the last step "
+          f"{sorted(classes)}; trap codes {sorted(set(f.err_code.cpu().tolist()))}", flush=True)
+
+    # the ERC-20 run at P_K10: in place, as `run` launches it
+    pin = load_json("torch_port", "erc20_transfer_steps.json")
+    n_steps = pin["n_steps"]
+    _, f0, env0, corpus0 = erc20_transfer_workload(P_K10, L, device=dev)
+
+    def kernel_run():
+        g = kernels.own_evm_fields(f0)
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(n_steps):
+            kernels.evm_superstep(g, env0, corpus0, own=True)
+        end.record()
+        torch.cuda.synchronize()
+        return g, start.elapsed_time(end)
+
+    kernel_run()  # warm-up
+    runs = [kernel_run() for _ in range(3)]
+    g, nbytes, nops = f0, 0, 0
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n_steps):
+        g = ci.superstep_plain(g, env0, corpus0)
+    end.record()
+    torch.cuda.synchronize()
+    plain_total = start.elapsed_time(end)
+    note("evm_superstep", runs[0][0], g, "ERC-20 run")
+    h = f0
+    for _ in range(n_steps):  # the work of each step, from its inputs
+        _, op, run, _ = ci.prologue_plain(h, corpus0)
+        nbytes += step_bytes(h, op, run)
+        nops += step_ops(h, op, run)
+        h = ci.superstep_plain(h, env0, corpus0)
+    out = [dict(name="evm_superstep", max_abs_err=err["evm_superstep"],
+                ms=sum(t for _, t in runs) / len(runs) / n_steps, plain_ms=plain_total / n_steps,
+                nbytes=nbytes / n_steps, ops=nops / n_steps)]
+    dev_ms = kernel_device_ms(kernel_run, "evm_superstep_kernel")
+    print(f"[3] evm_superstep ERC-20 run: {P_K10} lanes, {n_steps} in-place launches in "
+          f"{', '.join(f'{t:.3f}' for _, t in runs)} ms; plain {plain_total:.1f} ms; "
+          f"device {dev_ms:.4f} ms a launch (torch.profiler)", flush=True)
+
+    # the split entry points on the stress batch's first step, each on
+    # fields it owns: the copies the symbolic superstep makes are timed apart
+    sp = split
+    P = P_K10
+
+    def lane_bytes(entry):
+        # the per-lane fields an entry point writes; iprof's histogram
+        # row counts the one counter a step bumps
+        fs = [getattr(sp["f"], k) for k in kernels.EVM_WRITES[entry]
+              if getattr(sp["f"], k) is not None]
+        return sum(t.element_size() if t.dim() == 1 else 4 for t in fs) * P
+
+    runs_b = sp["run"] & ~sp["skip"]
+    calls = {
+        "evm_prologue": (sp["f"], "prologue",
+                         lambda g: kernels.evm_prologue(g, sp["corpus"], own=True),
+                         lambda: ci.prologue_plain(sp["f"], sp["corpus"]),
+                         2 * lane_bytes("prologue") + P * 40, 0),
+        "evm_dispatch": (sp["fp"], "dispatch",
+                         lambda g: kernels.evm_dispatch(g, sp["env"], sp["corpus"], sp["op"],
+                                                        sp["run"], sp["old_pc"], sp["skip"],
+                                                        own=True),
+                         lambda: ci.dispatch_plain(sp["fp"], sp["env"], sp["corpus"], sp["op"],
+                                                   sp["run"], sp["old_pc"], skip=sp["skip"]),
+                         step_bytes(sp["fp"], sp["op"], runs_b),
+                         step_ops(sp["fp"], sp["op"], runs_b)),
+        "evm_epilogue": (sp["dp"], "epilogue",
+                         lambda g: kernels.evm_epilogue(g, sp["op"], sp["run"], sp["old_pc"],
+                                                        own=True),
+                         lambda: ci.epilogue_plain(sp["dp"], sp["op"], sp["run"], sp["old_pc"]),
+                         2 * lane_bytes("epilogue") + P * 20, 0),
+    }
+    for name, (f_in, entry, kern, plain, nb, no) in calls.items():
+        ms = time_owned(kern, f_in, entry, 20)
+        copy_ms = time_ms(lambda: kernels.own_evm_fields(f_in, entry), 20)
+        dev_ms = kernel_device_ms(lambda: kern(kernels.own_evm_fields(f_in, entry)),
+                                  f"{name}_kernel", 20)
+        print(f"[3] {name}: {ms:.4f} ms on owned fields, device {dev_ms:.4f} ms a launch "
+              f"(torch.profiler); the copies of its {entry} fields (own_evm_fields) "
+              f"{copy_ms:.4f} ms", flush=True)
+        out.append(dict(name=name, max_abs_err=err[name], ms=ms,
+                        plain_ms=time_ms(plain, 3), nbytes=nb, ops=no))
+    for o in out:
+        o.update(source=K10_SOURCE, replaces=K10_REPLACES[o["name"]])
+    return out
+
+
+def run_concrete(dev) -> dict:
+    """Phase 10: the concrete path. ``run`` (one fused K10 launch and one
+    host read per superstep) on the ERC-20 transfer workload at P_K10
+    lanes, default limits, 256 steps: every lane halts without error or
+    revert after the step count the reference EVM gives it
+    (tests/fixtures/torch_port/erc20_transfer_steps.json), and the
+    frontier equals the plain ``run_plain``'s on the card."""
+    import torch
+    from mythril_tpu_torch.config import DEFAULT_LIMITS
+    from mythril_tpu_torch.core import interpreter as ci
+    from mythril_tpu_torch.workloads import erc20_transfer_workload
+
+    pin = load_json("torch_port", "erc20_transfer_steps.json")
+    if pin["P"] != P_K10:
+        fail(f"erc20_transfer_steps.json pins {pin['P']} lanes, not {P_K10}")
+    _, f, env, corpus = erc20_transfer_workload(P_K10, DEFAULT_LIMITS, device=dev)
+    torch.cuda.synchronize()
+    syncs0 = ci.HOST_SYNCS["count"]
+    t0 = time.monotonic()
+    end, counts = counted(lambda: ci.run(f, env, corpus, max_steps=pin["max_steps"]))
+    wall = time.monotonic() - t0
+    n_syncs = ci.HOST_SYNCS["count"] - syncs0
+    supersteps = counts["evm_superstep"]
+    if not (bool(end.halted.all()) and not bool(end.error.any())
+            and not bool(end.reverted.any())):
+        fail("concrete run: a lane did not halt cleanly")
+    if end.n_steps.cpu().tolist() != [pin["n_steps"]] * P_K10:
+        fail("concrete run: per-lane step counts differ from the reference EVM's")
+    if supersteps <= 0:
+        fail("concrete run: kernel evm_superstep was not launched")
+    others = {k: n for k, n in counts.items() if n and k != "evm_superstep"}
+    plain = ci.run_plain(f, env, corpus, max_steps=pin["max_steps"])
+    bad = {k: e for k, e in frontier_errs(end, plain).items() if e != 0}
+    if bad:
+        fail(f"concrete run: the frontier differs from run_plain's: {bad}")
+    lane_steps = int(end.n_steps.sum())
+    stats = {"lanes": P_K10, "supersteps": supersteps, "wall_s": wall, "lane_steps": lane_steps,
+             "lane_steps_per_s": lane_steps / wall, "host_syncs": n_syncs,
+             "host_syncs_per_superstep": n_syncs / supersteps, "other_launches": others}
+    print(f"[10] concrete run (ERC-20 transfer): every lane halted, step counts equal the "
+          f"reference EVM's, frontier equals run_plain's; {json.dumps(stats)}", flush=True)
+    return counts
+
+
 # ---------------------------------------------------------------------------
 # main
 # ---------------------------------------------------------------------------
@@ -854,7 +1446,8 @@ def main() -> int:
     rng = np.random.default_rng(20261017)
     results = [check_k1(dev, rng), check_k2(dev, rng), check_k3(dev, rng),
                check_k4(dev, rng), check_k5(dev, rng), check_k6(dev, rng),
-               check_k7(dev, rng), check_k8(dev, rng), *check_k9(dev, rng)]
+               check_k7(dev, rng), check_k8(dev, rng), *check_k9(dev, rng),
+               *check_k10(dev, rng)]
     for r in results:
         if r["max_abs_err"] != 0:
             fail(f"{r['name']}: kernel disagrees with its plain version "
@@ -941,6 +1534,9 @@ def run_paths(dev) -> dict:
     from mythril_tpu_torch.core import interpreter as ci
     from mythril_tpu_torch.symbolic.engine import ENGINE_STATS, FRAME_STATS
 
+    # phase 10 first (the concrete path; fails fast)
+    concrete = run_concrete(dev)
+
     # phase 4: goldens on the card
     t0 = time.monotonic()
     fixtures = golden_fixtures()
@@ -985,9 +1581,9 @@ def run_paths(dev) -> dict:
                                 "-t", "2"]),
               ("precompiles", ["-f", runtime, "--creation-code", creation])],
     }
-    need = {"a": ("divmod_u256", "keccak256", "tape_append"),
-            "b": ("sha256", "modexp_u256", "tape_append")}
-    launches = dict.fromkeys(kernels.KERNELS, 0)
+    need = {"a": K10_SYM + ("tape_append",),
+            "b": K10_SYM + ("sha256", "modexp_u256", "tape_append")}
+    launches = dict(concrete)
     for part, runs in parts.items():
         part_counts = dict.fromkeys(kernels.KERNELS, 0)
         for name, argv in runs:
@@ -1039,8 +1635,9 @@ def run_paths(dev) -> dict:
         # the enumeration and external paths, as in the JAX engine)
         if name == "config4" and stats["frames_pushed"] <= 0:
             fail(f"{name}: no sub-frame was pushed")
-        if counts["tape_append"] <= 0:
-            fail(f"{name}: kernel tape_append was not launched")
+        for k in K10_SYM + ("tape_append",):
+            if counts[k] <= 0:
+                fail(f"{name}: kernel {k} was not launched")
         for k, n in counts.items():
             launches[k] += n
 
@@ -1072,7 +1669,7 @@ def run_paths(dev) -> dict:
         "surviving_paths": report.coverage.get("surviving_paths"),
     }
     print(f"[7] batch {json.dumps(stats)}", flush=True)
-    for k in ("divmod_u256", "keccak256", "tape_append"):
+    for k in K10_SYM + ("tape_append",):
         if batch_launches[k] <= 0:
             fail(f"kernel {k} was not launched in the batch")
     want20 = {(d["swc-id"], d["address"]) for d in json.load(open(os.path.join(
@@ -1095,10 +1692,15 @@ def require_launches(what, counts, sweeps, kernels_needed):
         fail(f"{what}: {counts['propagate_sweep']} K6 launches for {sweeps} sweeps")
     print(f"[9] {what} launches K6 {counts['propagate_sweep']} (= sweeps), "
           f"K7 {counts['fork_plan']}, K8 {counts['mul_u256']}, "
-          f"K9 {counts['mod_wide_u256']} mod_wide / {counts['exp_u256']} exp", flush=True)
+          f"K9 {counts['mod_wide_u256']} mod_wide / {counts['exp_u256']} exp, "
+          f"K10 {counts['evm_dispatch']} dispatch", flush=True)
 
 
-ARITH_KERNELS = ("fork_plan", "mul_u256", "mod_wide_u256", "exp_u256", "tape_append")
+# the symbolic superstep's concrete step on the card (K10's split entry
+# points); the concrete MUL/DIV/EXP/MULMOD/SHA3 run inside K10, so K1, K2,
+# K8 and K9 no longer launch on an analyze
+K10_SYM = ("evm_prologue", "evm_dispatch", "evm_epilogue")
+ARITH_KERNELS = K10_SYM + ("fork_plan", "tape_append")
 
 
 def wrapper_run(what, build, pin, keys=COVERAGE_KEYS):
@@ -1174,7 +1776,7 @@ def run_policies(dev) -> dict:
     _, counts, sweeps = wrapper_run("fork-block batch", lambda: SymExecWrapper(
         [c for _, c in system], contract_names=[n for n, _ in system],
         limits=DEFAULT_LIMITS, fork_block=64, **kw), "forkblock4_default.json")
-    require_launches("fork-block batch", counts, sweeps, ARITH_KERNELS + ("keccak256",))
+    require_launches("fork-block batch", counts, sweeps, ARITH_KERNELS)
     add(counts)
 
     # checkpoints: a one-transaction run saves at every 16-step seam; the
@@ -1193,7 +1795,7 @@ def run_policies(dev) -> dict:
             [arith_code()], contract_names=["MAIN"], limits=DEFAULT_LIMITS, resume_from=mid,
             deadline_chunk_steps=16, **kw), "arith_bfs.json",
         keys=("lanes", "surviving_paths", "dropped_forks", "killed_infeasible", "lanes_errored"))
-    require_launches("arith resumed", counts, sweeps, ("fork_plan", "tape_append"))
+    require_launches("arith resumed", counts, sweeps, K10_SYM + ("fork_plan", "tape_append"))
     add(counts)
     return launches
 
@@ -1230,18 +1832,19 @@ def profile_paths(dev, codes, names) -> None:
         torch.cuda.synchronize()
         wall = time.monotonic() - t0
 
-    def dev_us(e):
-        return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
-
     events = prof.key_averages()
-    busy_us = sum(dev_us(e) for e in events)
-    n_kernels = sum(e.count for e in events if dev_us(e) > 0)
-    top = sorted(events, key=dev_us, reverse=True)[:8]
+    busy_us = sum(device_us(e) for e in events)
+    n_kernels = sum(e.count for e in events if device_us(e) > 0)
+    top = sorted(events, key=device_us, reverse=True)[:8]
     print(f"[8] batch window (16 supersteps, profiled): wall {wall:.2f} s, device busy "
           f"{busy_us / 1e6:.3f} s ({100 * busy_us / 1e6 / wall:.1f} %), "
           f"{n_kernels} device ops", flush=True)
     for e in top:
-        print(f"[8]   {dev_us(e) / 1e3:9.2f} ms  x{e.count:<7} {e.key[:90]}", flush=True)
+        print(f"[8]   {device_us(e) / 1e3:9.2f} ms  x{e.count:<7} {e.key[:90]}", flush=True)
+    for e in events:
+        if "evm_" in e.key and "_kernel" in e.key:
+            print(f"[8]   K10 {e.key[:60]}: x{e.count}, {device_us(e) / 1e3:.3f} ms on the "
+                  f"device", flush=True)
 
 
 if __name__ == "__main__":

@@ -1,13 +1,21 @@
 """Vectorized concrete EVM superstep over a PyTorch frontier.
 
-Counterpart of the JAX package's ``core/interpreter.py``: handlers run on
-the WHOLE frontier with a lane mask; every update is
-``torch.where(mask, new, old)``. Dispatch is per opcode *class*: the JAX
-code puts each class behind ``lax.cond(any(mask))``; here the presence of
-every class is read back to the host in ONE transfer per superstep
-(:func:`dispatch`) and only present classes run. That matters most for
-the 256-step classes: DIV/MOD go through one launch of kernel K1, but the
-plain EXP and ADDMOD/MULMOD loops are long chains of small launches.
+Counterpart of the JAX package's ``core/interpreter.py``. A frontier on a
+CUDA device goes through kernel K10 (``kernels/csrc/evm_step.cu``): one
+thread per lane runs the lane's own step, and :func:`run` makes one fused
+launch and one host read per superstep. A frontier on the CPU goes
+through the plain versions here (``prologue_plain``, ``dispatch_plain``,
+``epilogue_plain``, ``superstep_plain``, ``run_plain``), which
+``chip_smoke.py`` also calls by name on the card to hold K10 to them.
+Their arithmetic and SHA3 stay plain PyTorch on every device (``ops/u256``,
+``keccak256_plain``), so that reference shares no code with the kernel.
+
+The plain versions run handlers on the WHOLE frontier with a lane mask;
+every update is ``torch.where(mask, new, old)``. Dispatch is per opcode
+*class*: the JAX code puts each class behind ``lax.cond(any(mask))``;
+here the presence of every class is read back to the host in ONE
+transfer per superstep (:func:`dispatch_plain`) and only present classes
+run.
 
 TPU-only forms of the JAX code are dropped, their results kept: slot
 writes use per-lane indexing (``_use_scatter``'s CPU branch), handlers run
@@ -27,7 +35,7 @@ import torch
 
 from ..disassembler import opcodes as oc
 from ..ops import u256
-from ..ops.keccak import keccak256_device
+from ..ops.keccak import keccak256_plain
 from .frontier import Frontier, Env, Corpus, Trap, first_true
 
 I64 = torch.int64
@@ -324,9 +332,9 @@ def _h_mul(f: Frontier, env: Env, corpus: Corpus, op, m, old_pc):
 
 
 def _h_divmod(f: Frontier, env: Env, corpus: Corpus, op, m, old_pc):
-    """DIV/SDIV/MOD/SMOD: one shared unsigned division (kernel K1 on the
-    card) on operands whose signs are stripped here, in PyTorch, and put
-    back on the quotient/remainder afterwards."""
+    """DIV/SDIV/MOD/SMOD: one shared unsigned division on operands whose
+    signs are stripped here and put back on the quotient/remainder
+    afterwards."""
     a, b = _peek(f, 0), _peek(f, 1)
     signed = (op == 0x05) | (op == 0x07)  # SDIV SMOD
     aa, na = u256.abs_signed(a)
@@ -381,7 +389,7 @@ def _h_sha3(f: Frontier, env: Env, corpus: Corpus, op, m, old_pc):
     ok = m & ~too_long & ~oob
     data = _gather_bytes(f.memory, off, max_hash, torch.full_like(off, H))
     data = torch.where(torch.arange(max_hash, device=off.device)[None, :] < ln[:, None], data, 0)
-    digest = keccak256_device(data.to(U8).contiguous(), torch.clamp(ln, 0, max_hash).to(I32))
+    digest = keccak256_plain(data.to(U8).contiguous(), torch.clamp(ln, 0, max_hash).to(I32))
     words = _fdiv(ln + 31, 32)
     f = _charge(f, ok, 6 * words)
     return f.trap(too_long, Trap.HASH_LIMIT), {"r": digest, "ok": ok}
@@ -681,10 +689,11 @@ def host_bool(t: torch.Tensor) -> bool:
 # ---------------------------------------------------------------------------
 
 
-def prologue(f: Frontier, corpus: Corpus, berlin: bool = False):
-    """Fetch + validate the next instruction for every running lane.
-    Returns ``(f, op, run, old_pc)``. ``berlin`` charges the EIP-2929
-    WARM base costs; the symbolic engine adds the cold surcharges."""
+def prologue_plain(f: Frontier, corpus: Corpus, berlin: bool = False):
+    """Plain version of K10's prologue: fetch + validate the next
+    instruction for every running lane. Returns ``(f, op, run, old_pc)``.
+    ``berlin`` charges the EIP-2929 WARM base costs; the symbolic engine
+    adds the cold surcharges."""
     tb = _tab(f.pc)
     running = f.running
     MC = corpus.code.shape[1]
@@ -722,9 +731,10 @@ def class_present(op, run):
                      & run[:, None], dim=0)
 
 
-def dispatch(f: Frontier, env: Env, corpus: Corpus, op, run, old_pc,
-             skip=None, present=None) -> Frontier:
-    """Run the present classes' handlers, then write the stack once.
+def dispatch_plain(f: Frontier, env: Env, corpus: Corpus, op, run, old_pc,
+                   skip=None, present=None) -> Frontier:
+    """Plain version of K10's dispatch: run the present classes'
+    handlers, then write the stack once.
     ``skip`` masks lanes out (the symbolic engine claims them);
     ``present`` is the host list of class-present flags when the caller
     already read it back (else it is read here: one host sync)."""
@@ -769,8 +779,9 @@ def hist_add(hist, op, delta):
     return out
 
 
-def epilogue(f: Frontier, op, run, old_pc) -> Frontier:
-    """Default pc advance + out-of-gas trap after the handlers ran."""
+def epilogue_plain(f: Frontier, op, run, old_pc) -> Frontier:
+    """Plain version of K10's epilogue: default pc advance + out-of-gas
+    trap after the handlers ran."""
     tb = _tab(op)
     opl = op.long()
     cls = tb.CLASS[opl]
@@ -787,17 +798,84 @@ def epilogue(f: Frontier, op, run, old_pc) -> Frontier:
     return f.trap(oog, Trap.OOG)
 
 
-def superstep(f: Frontier, env: Env, corpus: Corpus) -> Frontier:
-    """Advance every running lane by one instruction."""
-    f, op, run, old_pc = prologue(f, corpus)
-    f = dispatch(f, env, corpus, op, run, old_pc)
-    return epilogue(f, op, run, old_pc)
+def superstep_plain(f: Frontier, env: Env, corpus: Corpus) -> Frontier:
+    """Plain version of K10's fused superstep: advance every running lane
+    by one instruction."""
+    f, op, run, old_pc = prologue_plain(f, corpus)
+    f = dispatch_plain(f, env, corpus, op, run, old_pc)
+    return epilogue_plain(f, op, run, old_pc)
 
 
-def run(f: Frontier, env: Env, corpus: Corpus, max_steps: int = 256) -> Frontier:
-    """Run until every lane halts/errors or max_steps supersteps elapse."""
+def run_plain(f: Frontier, env: Env, corpus: Corpus, max_steps: int = 256) -> Frontier:
+    """Plain version of :func:`run`: one host check per step."""
     for _ in range(max_steps):
         if not host_bool(torch.any(f.running)):
             break
-        f = superstep(f, env, corpus)
+        f = superstep_plain(f, env, corpus)
+    return f
+
+
+# ---------------------------------------------------------------------------
+# Entry points: K10 for a frontier on a CUDA device, the plain versions for
+# one on the CPU. The K10 wrappers write into fresh copies of the fields a
+# step changes, so ``old_pc`` (the input's ``pc``) and any frontier a
+# caller still holds stay as they were.
+# ---------------------------------------------------------------------------
+
+
+def prologue(f: Frontier, corpus: Corpus, berlin: bool = False):
+    """Fetch + validate the next instruction for every running lane.
+    Returns ``(f, op, run, old_pc)``."""
+    if f.pc.is_cuda:
+        from ..kernels import evm_prologue
+
+        out, op, run = evm_prologue(f, corpus, berlin)
+        return out, op, run, f.pc
+    return prologue_plain(f, corpus, berlin)
+
+
+def dispatch(f: Frontier, env: Env, corpus: Corpus, op, run, old_pc,
+             skip=None, present=None) -> Frontier:
+    """Each running lane not under ``skip`` executes its instruction.
+    ``present`` (the host list of class-present flags) serves the plain
+    version only; K10 needs none."""
+    if f.pc.is_cuda:
+        from ..kernels import evm_dispatch
+
+        return evm_dispatch(f, env, corpus, op, run, old_pc, skip)
+    return dispatch_plain(f, env, corpus, op, run, old_pc, skip, present)
+
+
+def epilogue(f: Frontier, op, run, old_pc) -> Frontier:
+    """Default pc advance + out-of-gas trap after the handlers ran."""
+    if f.pc.is_cuda:
+        from ..kernels import evm_epilogue
+
+        return evm_epilogue(f, op, run, old_pc)
+    return epilogue_plain(f, op, run, old_pc)
+
+
+def superstep(f: Frontier, env: Env, corpus: Corpus) -> Frontier:
+    """Advance every running lane by one instruction (one fused K10
+    launch on the card)."""
+    if f.pc.is_cuda:
+        from ..kernels import evm_superstep
+
+        return evm_superstep(f, env, corpus)
+    return superstep_plain(f, env, corpus)
+
+
+def run(f: Frontier, env: Env, corpus: Corpus, max_steps: int = 256) -> Frontier:
+    """Run until every lane halts/errors or max_steps supersteps elapse.
+    On the card: the fields a step writes are copied once, then each
+    superstep is one in-place K10 launch after one host read."""
+    if not f.pc.is_cuda:
+        return run_plain(f, env, corpus, max_steps)
+    from ..kernels import evm_superstep, own_evm_fields
+
+    f = own_evm_fields(f)
+    for _ in range(max_steps):
+        if not host_bool(torch.any(f.running)):
+            break
+        evm_superstep(f, env, corpus, own=True)
     return f

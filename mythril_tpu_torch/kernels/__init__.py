@@ -11,10 +11,15 @@ K7     ``csrc/fork_plan.cu``       ``fork_plan`` — policy-keyed fork planning
 K8     ``csrc/u256_mul.cu``        ``mul_u256`` — MUL / wide product
 K9     ``csrc/u256_mulmod_exp.cu`` ``mod_wide_u256``, ``exp_u256`` — ADDMOD /
                                    MULMOD remainder, EXP
+K10    ``csrc/evm_step.cu``        ``evm_prologue``, ``evm_dispatch``,
+                                   ``evm_epilogue``, ``evm_superstep`` — one
+                                   concrete EVM step per lane
 =====  ==========================  =========================================
 
-``csrc/u256.cuh`` holds the limb helpers and the Barrett reduction that
-K5, K6, K8 and K9 share.
+``csrc/u256.cuh`` holds the limb helpers, the long division and the
+Barrett reduction that K1, K5, K6, K8, K9 and K10 share; ``csrc/keccak.cuh``
+the permutation K2 and K10 share; ``csrc/evm_step.cuh`` K10's per-lane
+body (the CPU tests build it as host C++).
 
 Each source has a plain C interface. :func:`build` compiles them with
 ``nvcc`` — one process per source, all started together — into shared
@@ -23,12 +28,16 @@ them with ``ctypes``; nothing includes PyTorch's headers, so a build takes
 seconds. A kernel is built at its first launch, never at import.
 
 Each wrapper checks device, dtype, shape and contiguity, allocates its
-outputs with ``torch.empty``, launches on PyTorch's current stream, raises
+outputs with ``torch.empty`` (K10: copies of the frontier fields it
+writes), launches on PyTorch's current stream, raises
 if the launch returned a CUDA error, and adds one to its ``launches``
 counter. The plain PyTorch versions live beside their callers
 (``ops/u256.py``, ``ops/keccak.py``, ``ops/sha256.py``,
-``symbolic/engine.py``, ``symbolic/propagate.py``); those
-callers route a CPU tensor to the plain version and a CUDA tensor here.
+``symbolic/engine.py``, ``symbolic/propagate.py``,
+``core/interpreter.py``); those callers route a CPU tensor to the plain
+version and a CUDA tensor here. K1, K8 and K9 have no such caller: their
+arithmetic runs inside K10 on the card, and their plain versions in
+``ops/u256.py`` compute in PyTorch on any device.
 """
 
 from __future__ import annotations
@@ -55,6 +64,7 @@ SOURCES = {
     "fork_plan": "fork_plan.cu",
     "u256_mul": "u256_mul.cu",
     "u256_mulmod_exp": "u256_mulmod_exp.cu",
+    "evm_step": "evm_step.cu",
 }
 # largest dynamic shared memory one block may opt into on sm_90 (bytes)
 MAX_SMEM = 232448
@@ -116,6 +126,7 @@ def build(verbose: bool = False) -> float:
         libs["u256_mul"].u256_mul.argtypes = [vp, vp, vp, ci, ci, vp]
         libs["u256_mulmod_exp"].u256_mod_wide.argtypes = [vp, vp, vp, ci, vp]
         libs["u256_mulmod_exp"].u256_exp.argtypes = [vp, vp, vp, ci, vp]
+        bind_evm_step(libs["evm_step"])
         for lib, fn in (("u256_divmod", "divmod_u256"), ("keccak256", "keccak256"),
                         ("tape_append", "tape_append"), ("sha256", "sha256"),
                         ("u256_modexp", "modexp_u256"), ("propagate_sweep", "propagate_sweep"),
@@ -137,6 +148,10 @@ def _lib(name):
 def _check(t: torch.Tensor, what: str, dtype, shape, device):
     if t.device != device or not t.is_cuda:
         raise ValueError(f"{what}: expected a CUDA tensor on {device}, got {t.device}")
+    _check_layout(t, what, dtype, shape)
+
+
+def _check_layout(t: torch.Tensor, what: str, dtype, shape):
     if t.dtype != dtype:
         raise TypeError(f"{what}: expected {dtype}, got {t.dtype}")
     if tuple(t.shape) != tuple(shape):
@@ -399,10 +414,194 @@ def fork_plan(active, fork_req, con_len, fork_dest, contract_id, pc, sp, dropped
     return out_i, out_b
 
 
+# ---------------------------------------------------------------------------
+# K10: the concrete EVM step (csrc/evm_step.cu)
+# ---------------------------------------------------------------------------
+
+# The pointers K10 takes, in the order of ``EVM_PTR_FIELDS`` in
+# csrc/evm_step.cuh: (name, where, dtype, shape). ``where`` is the
+# frontier ("f", the kernel's ``is_static`` is the field ``static``), the
+# env ("env"), the corpus ("corpus"), the opcode tables ("tab", the
+# ``Tables`` attribute) or the step itself ("step"). Shapes name the dims.
+_B, _U8, _I32, _I64 = torch.bool, torch.uint8, torch.int32, torch.int64
+EVM_FIELDS = (
+    ("active", "f", _B, ("P",)), ("halted", "f", _B, ("P",)), ("error", "f", _B, ("P",)),
+    ("err_code", "f", _I32, ("P",)), ("reverted", "f", _B, ("P",)), ("pc", "f", _I32, ("P",)),
+    ("contract_id", "f", _I32, ("P",)), ("depth", "f", _I32, ("P",)),
+    ("sp_base", "f", _I32, ("P",)), ("static", "f", _B, ("P",)),
+    ("cur_acct", "f", _I32, ("P",)), ("caller_addr", "f", _I64, ("P", 8)),
+    ("callvalue", "f", _I64, ("P", 8)), ("pc_hold", "f", _B, ("P",)),
+    ("init_code", "f", _U8, ("P", "IC")), ("init_len", "f", _I32, ("P",)),
+    ("init_jd", "f", _B, ("P", "IC")), ("init_depth", "f", _I32, ("P",)),
+    ("acct_addr", "f", _I64, ("P", "A", 8)), ("acct_code", "f", _I32, ("P", "A")),
+    ("acct_bal", "f", _I64, ("P", "A", 8)), ("acct_used", "f", _B, ("P", "A")),
+    ("stack", "f", _I64, ("P", "S", 8)), ("sp", "f", _I32, ("P",)),
+    ("memory", "f", _U8, ("P", "M")), ("mem_words", "f", _I32, ("P",)),
+    ("gas_min", "f", _I64, ("P",)), ("gas_max", "f", _I64, ("P",)),
+    ("gas_limit", "f", _I64, ("P",)), ("st_keys", "f", _I64, ("P", "K", 8)),
+    ("st_vals", "f", _I64, ("P", "K", 8)), ("st_used", "f", _B, ("P", "K")),
+    ("st_written", "f", _B, ("P", "K")), ("st_acct", "f", _I32, ("P", "K")),
+    ("calldata", "f", _U8, ("P", "CD")), ("calldata_len", "f", _I32, ("P",)),
+    ("returndata", "f", _U8, ("P", "RD")), ("returndata_len", "f", _I32, ("P",)),
+    ("retval", "f", _U8, ("P", "RD")), ("retval_len", "f", _I32, ("P",)),
+    ("n_logs", "f", _I32, ("P",)), ("log_pc", "f", _I32, ("P", "LS")),
+    ("log_cid", "f", _I32, ("P", "LS")), ("log_ntopics", "f", _I32, ("P", "LS")),
+    ("log_topic0", "f", _I64, ("P", "LS", 8)), ("log_data0", "f", _I64, ("P", "LS", 8)),
+    ("selfdestructed", "f", _B, ("P",)), ("n_steps", "f", _I32, ("P",)),
+    ("op_hist", "f", _I32, ("P", 256)),
+    *((k, "env", _I64, ("P", 8)) for k in ("origin", "gasprice", "coinbase", "timestamp",
+                                           "number", "prevrandao", "blk_gaslimit",
+                                           "chainid", "basefee")),
+    ("code", "corpus", _U8, ("C", "MC")), ("code_len", "corpus", _I32, ("C",)),
+    ("is_jumpdest", "corpus", _B, ("C", "MC")), ("code_hash", "corpus", _I64, ("C", 8)),
+    ("CLASS", "tab", _I32, (256,)), ("STACK_IN", "tab", _I32, (256,)),
+    ("STACK_OUT", "tab", _I32, (256,)), ("D_SP", "tab", _I32, (256,)),
+    ("PUSHES", "tab", _B, (256,)), ("PUSH_WIDTH", "tab", _I32, (256,)),
+    ("IS_VALID", "tab", _B, (256,)), ("GAS_MIN", "tab", _I64, (256,)),
+    ("GAS_MAX", "tab", _I64, (256,)), ("EMPTY_KECCAK", "tab", _I64, (8,)),
+    ("op", "step", _I32, ("P",)), ("run", "step", _B, ("P",)),
+    ("old_pc", "step", _I32, ("P",)), ("skip", "step", _B, ("P",)),
+)
+EVM_DIMS = ("P", "S", "M", "CD", "RD", "K", "A", "LS", "IC", "MC", "C")
+# the frontier fields each entry point writes; a wrapper writes into
+# clones of them (so a tensor a caller still holds is never changed)
+# unless the caller owns the frontier (``own=True``, as ``run`` does)
+EVM_WRITES = {
+    "prologue": ("error", "err_code", "gas_min", "gas_max"),
+    "dispatch": ("stack", "sp", "gas_min", "gas_max", "mem_words", "error", "err_code",
+                 "memory", "st_keys", "st_vals", "st_used", "st_written", "st_acct", "pc",
+                 "halted", "reverted", "selfdestructed", "retval", "retval_len", "n_logs",
+                 "log_pc", "log_cid", "log_ntopics", "log_topic0", "log_data0",
+                 "returndata_len"),
+    "epilogue": ("pc", "pc_hold", "n_steps", "op_hist", "error", "err_code"),
+}
+EVM_WRITES["superstep"] = tuple(dict.fromkeys(
+    EVM_WRITES["prologue"] + EVM_WRITES["dispatch"] + EVM_WRITES["epilogue"]))
+EVM_ENTRIES = ("evm_prologue", "evm_dispatch", "evm_epilogue", "evm_superstep")
+
+
+def bind_evm_step(lib):
+    """Argument and result types of K10's entry points on a loaded library
+    (the nvcc build here; the CPU tests' host build of the same body)."""
+    for name in EVM_ENTRIES:
+        fn = getattr(lib, name)
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+
+
+def own_evm_fields(f, entry: str = "superstep"):
+    """``f`` with fresh, contiguous copies of the fields ``entry`` writes."""
+    return f.replace(**{k: getattr(f, k).clone(memory_format=torch.contiguous_format)
+                        for k in EVM_WRITES[entry] if getattr(f, k) is not None})
+
+
+def evm_step_call(entry: str, fn, stream: int, f, env, corpus, *, berlin=False,
+                  op=None, run=None, old_pc=None, skip=None, own=False):
+    """Marshal one K10 step for ``fn`` (a library's entry point ``entry``,
+    one of prologue/dispatch/epilogue/superstep) and call it. Checks the
+    dtype, shape, device and contiguity of every tensor it passes; the
+    frontier comes back with the fields ``entry`` wrote (in clones unless
+    ``own``). -> (frontier, op, run)."""
+    from ..core.interpreter import Tables
+
+    dev = f.pc.device
+    if not own:
+        f = own_evm_fields(f, entry)
+    P = f.n_lanes
+    if entry == "prologue":
+        op = torch.empty(P, dtype=_I32, device=dev)
+        run = torch.empty(P, dtype=_B, device=dev)
+    tb = Tables.on(dev)
+    tabs = {name: getattr(tb, name) for name, where, _, _ in EVM_FIELDS if where == "tab"}
+    if berlin:
+        tabs.update(GAS_MIN=tb.GAS_MIN_BERLIN, GAS_MAX=tb.GAS_MAX_BERLIN)
+    srcs = {"f": f, "env": env, "corpus": corpus}
+    dims = dict(P=P, S=f.stack.shape[1], M=f.memory.shape[1], CD=f.calldata.shape[1],
+                RD=f.retval.shape[1], K=f.st_used.shape[1], A=f.acct_used.shape[1],
+                LS=f.log_pc.shape[1], IC=f.init_code.shape[1],
+                MC=corpus.code.shape[1] if corpus is not None else 0,
+                C=corpus.code.shape[0] if corpus is not None else 0)
+    step = {"op": op, "run": run, "old_pc": old_pc, "skip": skip}
+    optional = {"op_hist", "skip", "old_pc"} if entry == "prologue" else {"op_hist", "skip"}
+    if entry == "superstep":
+        optional |= {"op", "run", "old_pc"}
+    # the prologue reads no env, the epilogue neither env nor corpus
+    unread = {"prologue": ("env",), "epilogue": ("env", "corpus")}.get(entry, ())
+    ptrs = []
+    for name, where, dtype, shape in EVM_FIELDS:
+        if where == "tab":
+            t = tabs[name]
+        elif where == "step":
+            t = step[name]
+        else:
+            src = srcs[where]
+            t = None if src is None else getattr(src, name)
+        if t is None:
+            if name not in optional and where not in unread:
+                raise ValueError(f"evm_{entry}: {name} is required")
+            ptrs.append(0)
+            continue
+        what = f"evm_{entry} {name}"
+        if t.device != dev:
+            raise ValueError(f"{what}: expected a tensor on {dev}, got {t.device}")
+        _check_layout(t, what, dtype, [dims.get(d, d) for d in shape])
+        ptrs.append(t.data_ptr())
+    c_ptrs = (ctypes.c_uint64 * len(ptrs))(*ptrs)
+    c_dims = (ctypes.c_int * len(EVM_DIMS))(*(dims[d] for d in EVM_DIMS))
+    err = fn(ctypes.cast(c_ptrs, ctypes.c_void_p), ctypes.cast(c_dims, ctypes.c_void_p), stream)
+    _raise_on(err, f"evm_{entry}")
+    return f, op, run
+
+
+def _evm_launch(wrapper, entry, f, env, corpus, **kw):
+    if not f.pc.is_cuda:
+        raise ValueError(f"evm_{entry}: expected a CUDA tensor, got {f.pc.device}")
+    dev = f.pc.device
+    out = evm_step_call(entry, getattr(_lib("evm_step"), f"evm_{entry}"), _stream(dev),
+                        f, env, corpus, **kw)
+    wrapper.launches += 1
+    return out
+
+
+@_launch_counter
+def evm_prologue(f, corpus, berlin: bool = False, own: bool = False):
+    """K10 prologue -> (frontier, op int32[P], run bool[P]); old_pc is
+    the input's ``pc``, which it leaves as it was. ``own`` as for
+    :func:`evm_superstep`."""
+    return _evm_launch(evm_prologue, "prologue", f, None, corpus, berlin=berlin, own=own)
+
+
+@_launch_counter
+def evm_dispatch(f, env, corpus, op, run, old_pc, skip=None, own: bool = False):
+    """K10 dispatch: each running lane not under ``skip`` runs its class
+    handler and the stack writeback. -> frontier."""
+    return _evm_launch(evm_dispatch, "dispatch", f, env, corpus, op=op, run=run,
+                       old_pc=old_pc, skip=skip, own=own)[0]
+
+
+@_launch_counter
+def evm_epilogue(f, op, run, old_pc, own: bool = False):
+    """K10 epilogue: pc advance, pc_hold reset, n_steps, iprof, OOG. ->
+    frontier."""
+    return _evm_launch(evm_epilogue, "epilogue", f, None, None, op=op, run=run,
+                       old_pc=old_pc, own=own)[0]
+
+
+@_launch_counter
+def evm_superstep(f, env, corpus, berlin: bool = False, own: bool = False):
+    """K10 fused prologue -> dispatch -> epilogue. ``own``: the caller owns
+    every field the entry point writes (``own_evm_fields``) and it runs in
+    place on them. -> frontier."""
+    return _evm_launch(evm_superstep, "superstep", f, env, corpus, berlin=berlin,
+                       own=own)[0]
+
+
 KERNELS = {"divmod_u256": divmod_u256, "keccak256": keccak256,
            "tape_append": tape_append, "sha256": sha256, "modexp_u256": modexp_u256,
            "propagate_sweep": propagate_sweep, "fork_plan": fork_plan,
-           "mul_u256": mul_u256, "mod_wide_u256": mod_wide_u256, "exp_u256": exp_u256}
+           "mul_u256": mul_u256, "mod_wide_u256": mod_wide_u256, "exp_u256": exp_u256,
+           "evm_prologue": evm_prologue, "evm_dispatch": evm_dispatch,
+           "evm_epilogue": evm_epilogue, "evm_superstep": evm_superstep}
 
 
 def reset_launch_counts():

@@ -11,6 +11,9 @@
 // of low products from the top set bit of e; e == 0 gives 1 (0 ** 0
 // included), as the JAX loop's 256 squarings of 1 do.
 //
+// Both bodies live in u256.cuh (`mod_wide16`, `exp8`), which K10's
+// ADDMOD/MULMOD/EXP share.
+//
 // Bound: operations. mod_wide pays the 258-step mu search and two
 // ~190-multiply-add reductions per lane; exp up to 2 x 256 low products
 // of 36 multiply-adds. Both read and write a few hundred bytes per lane.
@@ -27,25 +30,7 @@ __global__ void mod_wide_kernel(const int64_t* __restrict__ x_in,
   uint32_t x[16], m[8], r[8];
   load(x_in + 16 * (int64_t)p, x, 16);
   load(m_in + 8 * (int64_t)p, m);
-  int top = top_bit8(m);
-  if (top < 0) {
-    fill8(r, 0u);
-  } else {
-    Barrett B;
-    barrett_init(B, m, top);
-    uint32_t t[16];
-    for (int i = 0; i < 8; ++i) {
-      t[i] = x[8 + i];
-      t[8 + i] = 0u;
-    }
-    uint32_t rh[8];
-    barrett_reduce(B, t, rh);
-    for (int i = 0; i < 8; ++i) {
-      t[i] = x[i];
-      t[8 + i] = rh[i];
-    }
-    barrett_reduce(B, t, r);
-  }
+  mod_wide16(x, m, r);
   store(out + 8 * (int64_t)p, r);
 }
 
@@ -54,19 +39,10 @@ __global__ void exp_kernel(const int64_t* __restrict__ base_in,
                            int64_t* __restrict__ out, int n) {
   int p = blockIdx.x * blockDim.x + threadIdx.x;
   if (p >= n) return;
-  uint32_t base[8], e[8], acc[8], t[8];
+  uint32_t base[8], e[8], acc[8];
   load(base_in + 8 * (int64_t)p, base);
   load(e_in + 8 * (int64_t)p, e);
-  fill8(acc, 0u);
-  acc[0] = 1u;
-  for (int i = top_bit8(e); i >= 0; --i) {
-    mul_low(acc, 8, acc, 8, t, 8);
-    copy8(acc, t);
-    if ((e[i >> 5] >> (i & 31)) & 1u) {
-      mul_low(acc, 8, base, 8, t, 8);
-      copy8(acc, t);
-    }
-  }
+  exp8(base, e, acc);
   store(out + 8 * (int64_t)p, acc);
 }
 

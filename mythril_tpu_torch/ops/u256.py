@@ -13,11 +13,14 @@ halves so no intermediate exceeds 2^63. ``to_numpy`` seams convert to
 Conventions (EVM): DIV/MOD by zero -> 0; SDIV overflow (-2^255 / -1)
 -> -2^255; shifts with amount >= 256 -> 0 (SAR -> sign fill).
 
-The kernels' functions go through hand-written CUDA on a CUDA tensor and
-through their plain versions (``*_plain``) on a CPU tensor: ``divmod_u``
-(K1, ``kernels/csrc/u256_divmod.cu``), ``modexp`` (K5), ``mul`` and
-``mul_wide`` (K8, ``u256_mul.cu``), ``_mod_wide`` (ADDMOD/MULMOD) and
-``exp`` (K9, ``u256_mulmod_exp.cu``).
+Every function here computes in plain PyTorch on any device, except
+``modexp``, which goes to kernel K5 (``kernels/csrc/u256_modexp.cu``) on a
+CUDA tensor and to ``modexp_plain`` on a CPU tensor. ``divmod_u`` (K1,
+``kernels/csrc/u256_divmod.cu``), ``mul`` and ``mul_wide`` (K8,
+``u256_mul.cu``), ``_mod_wide`` and ``exp`` (K9, ``u256_mulmod_exp.cu``)
+are those kernels' plain versions: on the card the concrete step runs the
+same arithmetic inside K10 (``evm_step.cu``), and these stay the
+independent reference it is held to.
 """
 
 from __future__ import annotations
@@ -272,38 +275,17 @@ def _product_halves(a, b, n_out: int):
     return h[..., 0::2] | (h[..., 1::2] << 16)
 
 
-def mul_plain(a, b):
-    """Plain version of K8's low product: the low 256 bits of a*b."""
+def mul(a, b):
+    """Low 256 bits of a*b (plain version of K8's low product)."""
     a, b = torch.broadcast_tensors(a, b)
     return _product_halves(a, b, 16)
 
 
-def mul_wide_plain(a, b):
-    """Plain version of K8's wide product: the 512-bit a*b as [..., 16]."""
+def mul_wide(a, b):
+    """Full 512-bit product as [..., 16] limbs (plain version of K8's
+    wide product)."""
     a, b = torch.broadcast_tensors(a, b)
     return _product_halves(a, b, 32)
-
-
-def _mul_k8(a, b, mode: str):
-    from ..kernels import mul_u256
-
-    a, b = torch.broadcast_tensors(a, b)
-    return mul_u256(a.contiguous(), b.contiguous(), mode)
-
-
-def mul(a, b):
-    """Low 256 bits of a*b: K8 on a CUDA tensor, the plain version on a
-    CPU tensor."""
-    if a.is_cuda or b.is_cuda:
-        return _mul_k8(a, b, "low")
-    return mul_plain(a, b)
-
-
-def mul_wide(a, b):
-    """Full 512-bit product as [..., 16] limbs (K8 on a CUDA tensor)."""
-    if a.is_cuda or b.is_cuda:
-        return _mul_k8(a, b, "wide")
-    return mul_wide_plain(a, b)
 
 
 # ---------------------------------------------------------------------------
@@ -320,9 +302,9 @@ def _shift_in(r, bit):
     return r2, overflow
 
 
-def divmod_u_plain(a, b):
-    """Plain version of K1: 256-step shift-subtract long division;
-    division by zero -> (0, 0). The shifted-out bit is tracked: when set,
+def divmod_u(a, b):
+    """Unsigned (a // b, a % b), division by zero -> (0, 0) per EVM; the
+    plain version of K1: 256-step shift-subtract long division. The shifted-out bit is tracked: when set,
     the true remainder exceeds 2^256 > b, so the subtraction must occur."""
     a, b = torch.broadcast_tensors(a, b)
     q = torch.zeros_like(a)
@@ -337,17 +319,6 @@ def divmod_u_plain(a, b):
         q[..., limb] |= ge.to(CARRIER) << shift
     bz = is_zero(b)[..., None]
     return torch.where(bz, 0, q), torch.where(bz, 0, r)
-
-
-def divmod_u(a, b):
-    """Unsigned (a // b, a % b); division by zero -> (0, 0) per EVM.
-    A CUDA tensor goes to kernel K1, a CPU tensor to its plain version."""
-    if a.is_cuda or b.is_cuda:
-        from ..kernels import divmod_u256
-
-        a, b = torch.broadcast_tensors(a, b)
-        return divmod_u256(a.contiguous(), b.contiguous())
-    return divmod_u_plain(a, b)
 
 
 def div(a, b):
@@ -378,7 +349,7 @@ def smod(a, b):
 
 def _top_bit(x) -> int:
     """Highest set bit over every lane of limb vectors ``x[..., n]``, -1
-    when all are zero (one host read; the plain versions run on the CPU)."""
+    when all are zero (one host read)."""
     nz = torch.nonzero(torch.any(x.reshape(-1, x.shape[-1]) != 0, dim=0))
     if nz.numel() == 0:
         return -1
@@ -386,9 +357,9 @@ def _top_bit(x) -> int:
     return LIMB_BITS * limb + int(torch.max(x[..., limb])).bit_length() - 1
 
 
-def _mod_wide_plain(wide, m):
-    """Plain version of K9's ``mod_wide``: ([..., n] limb value) mod
-    (u256 m); m==0 -> 0. Bitwise long division."""
+def _mod_wide(wide, m):
+    """([..., n] limb value) mod (u256 m); m==0 -> 0. Bitwise long
+    division; the plain version of K9's ``mod_wide``."""
     r = torch.zeros(wide.shape[:-1] + (NLIMBS,), dtype=CARRIER, device=wide.device)
     m = m.expand_as(r)
     # leading zero bits common to every lane shift zeros into r = 0: skip them
@@ -399,19 +370,6 @@ def _mod_wide_plain(wide, m):
         ge = gte(r2, m) | overflow
         r = torch.where(ge[..., None], sub(r2, m), r2)
     return torch.where(is_zero(m)[..., None], 0, r)
-
-
-def _mod_wide(wide, m):
-    """([..., n <= 16] limb value) mod (u256 m); m==0 -> 0: K9 on a CUDA
-    tensor, the plain version on a CPU tensor."""
-    if not (wide.is_cuda or m.is_cuda):
-        return _mod_wide_plain(wide, m)
-    from ..kernels import mod_wide_u256
-
-    if wide.shape[-1] < 2 * NLIMBS:
-        wide = torch.nn.functional.pad(wide, (0, 2 * NLIMBS - wide.shape[-1]))
-    m = m.expand(wide.shape[:-1] + (NLIMBS,))
-    return mod_wide_u256(wide.contiguous(), m.contiguous())
 
 
 def addmod(a, b, m):
@@ -561,9 +519,9 @@ def modexp(base, e, m):
 # ---------------------------------------------------------------------------
 
 
-def exp_plain(base, e):
-    """Plain version of K9's ``exp``: base ** e mod 2^256, square-and-
-    multiply (MSB-first)."""
+def exp(base, e):
+    """base ** e mod 2^256, square-and-multiply (MSB-first); the plain
+    version of K9's ``exp``."""
     base, e = torch.broadcast_tensors(base, e)
     acc = torch.zeros_like(base)
     acc[..., 0] = 1
@@ -571,20 +529,9 @@ def exp_plain(base, e):
     for i in range(_top_bit(e), -1, -1):
         limb, shift = i // LIMB_BITS, i % LIMB_BITS
         bit = ((e[..., limb] >> shift) & 1) != 0
-        acc = mul_plain(acc, acc)
-        acc = torch.where(bit[..., None], mul_plain(acc, base), acc)
+        acc = mul(acc, acc)
+        acc = torch.where(bit[..., None], mul(acc, base), acc)
     return acc
-
-
-def exp(base, e):
-    """base ** e mod 2^256: K9 on a CUDA tensor, the plain version on a
-    CPU tensor."""
-    if base.is_cuda or e.is_cuda:
-        from ..kernels import exp_u256
-
-        base, e = torch.broadcast_tensors(base, e)
-        return exp_u256(base.contiguous(), e.contiguous())
-    return exp_plain(base, e)
 
 
 def _take_limb(x, idx):

@@ -1788,9 +1788,9 @@ def _berlin_gas_post(sf: SymFrontier, op, run, key_w, key_s) -> SymFrontier:
                                      st_warm=st_warm))
 
 
-# host-read predicate slots of sym_superstep (one transfer per superstep,
-# after the 16 class-present flags)
-_P_STORAGE, _P_JUMP, _P_CALL, _P_CREATE, _P_MISC, _P_PRE, _P_FRAMES, _P_INIT = range(16, 24)
+# host-read predicate slots of sym_superstep (one transfer per superstep;
+# on the CPU the 16 class-present flags of the plain dispatch come first)
+_P_STORAGE, _P_JUMP, _P_CALL, _P_CREATE, _P_MISC, _P_PRE, _P_FRAMES, _P_INIT = range(8)
 
 
 def sym_superstep(sf: SymFrontier, env: Env, corpus: Corpus,
@@ -1835,15 +1835,18 @@ def sym_superstep(sf: SymFrontier, env: Env, corpus: Corpus,
     b0 = sf.base
     in_frame = b0.active & (b0.depth > 0)
 
-    # every cond predicate of this superstep in ONE device->host read
+    # every cond predicate of this superstep in ONE device->host read; the
+    # concrete dispatch on the card (K10) needs no class-present flags
+    head = [] if op.is_cuda else [ci.class_present(op, run & ~claimed)]
     preds = ci.host_list(torch.cat([
-        ci.class_present(op, run & ~claimed),
+        *head,
         torch.stack([claim_storage.any(), claim_jump.any(), claim_call.any(),
                      claim_create.any(), misc.any(), maybe_pre.any(), in_frame.any(),
                      (in_frame & (b0.init_depth > 0)).any()])]))
+    present, preds = (None, preds) if op.is_cuda else (preds[:ci.N_CLASSES],
+                                                       preds[ci.N_CLASSES:])
 
-    f = ci.dispatch(sf.base, env, corpus, op, run, old_pc, skip=claimed,
-                    present=preds[:ci.N_CLASSES])
+    f = ci.dispatch(sf.base, env, corpus, op, run, old_pc, skip=claimed, present=present)
     sf = sf.replace(base=f)
     sf = _overlay(sf, env, spec, op, run & ~claimed, cls, pre_sp,
                   pre_stack_sym, a, s, limits)

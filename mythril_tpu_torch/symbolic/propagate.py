@@ -85,9 +85,9 @@ def _node_domains(op, a_id, b_id, imm, la, ha, lb, hb, ka, va, kb, vb):
     r_hi = torch.where(_sel(op, SymOp.SUB), torch.where(no_wrap[:, None], d_hi, top_hi), r_hi)
 
     # MUL: exact when hi*hi fits 256 bits
-    wide = u256.mul_wide_plain(ha, hb)
+    wide = u256.mul_wide(ha, hb)
     fits = torch.all(wide[:, 8:] == 0, dim=-1)
-    m_lo = u256.mul_plain(la, lb)
+    m_lo = u256.mul(la, lb)
     m_hi = wide[:, :8]
     r_lo = torch.where(_sel(op, SymOp.MUL), torch.where(fits[:, None], m_lo, 0), r_lo)
     r_hi = torch.where(_sel(op, SymOp.MUL), torch.where(fits[:, None], m_hi, top_hi), r_hi)

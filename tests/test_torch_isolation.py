@@ -137,6 +137,17 @@ def _compute(path):
         "fork_plan": lambda: kernels.fork_plan(*_fork_args(torch), block=4, policy="beam",
                                                n_con=4, n_stack=8, defer=True),
     }
+    from mythril_tpu_torch.config import TEST_LIMITS
+    from mythril_tpu_torch.workloads import erc20_transfer_workload
+
+    _, f, env, corpus = erc20_transfer_workload(4, TEST_LIMITS)
+    op, run = torch.zeros(4, dtype=torch.int32), torch.zeros(4, dtype=torch.bool)
+    calls.update({
+        "evm_prologue": lambda: kernels.evm_prologue(f, corpus),
+        "evm_dispatch": lambda: kernels.evm_dispatch(f, env, corpus, op, run, f.pc),
+        "evm_epilogue": lambda: kernels.evm_epilogue(f, op, run, f.pc),
+        "evm_superstep": lambda: kernels.evm_superstep(f, env, corpus),
+    })
     for name, call in calls.items():
         try:
             call()
@@ -161,7 +172,8 @@ def test_entry_points_default_to_the_card(res):
 
 @pytest.mark.parametrize("kernel", ["divmod_u256", "sha256", "modexp_u256", "mul_u256",
                                     "mod_wide_u256", "exp_u256", "propagate_sweep",
-                                    "fork_plan"])
+                                    "fork_plan", "evm_prologue", "evm_dispatch",
+                                    "evm_epilogue", "evm_superstep"])
 def test_cuda_tensor_never_falls_back_to_plain(res, kernel):
     # a kernel wrapper takes CUDA tensors only (and raises on anything
     # else); the routing functions send a CUDA tensor nowhere but here

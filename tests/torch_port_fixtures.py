@@ -307,6 +307,37 @@ def _pin_wrapper(name):
         json.dump(wrapper_doc(fire_lasers(sym)), fh, indent=1, sort_keys=True)
 
 
+ERC20_LANES = 4096  # the concrete path's bench width (bench.py)
+ERC20_MAX_STEPS = 256
+
+
+def _pin_erc20_steps():
+    """The step count of every lane of the ERC-20 transfer workload at the
+    bench width, from the int-based reference EVM (tests/pyevm_ref.py):
+    lane i runs transfer(0x1000 + i, 0) from the bench caller. The
+    recipient does not change the path, so every lane takes the same
+    count and one is pinned. chip_smoke.py's phase 10 holds the card's
+    concrete ``run`` to it."""
+    sys.path.insert(0, ROOT)
+    sys.path.insert(0, HERE)
+    from mythril_tpu.disassembler.asm import abi_call, erc20_like
+    from mythril_tpu.workloads import BENCH_CALLER, TRANSFER_SELECTOR
+    from pyevm_ref import RefEnv, RefEVM
+
+    code = erc20_like()
+    res = [RefEVM(code, abi_call(TRANSFER_SELECTOR, 0x1000 + i, 0),
+                  env=RefEnv(caller=BENCH_CALLER)).run(ERC20_MAX_STEPS)
+           for i in range(ERC20_LANES)]
+    steps = {r.steps for r in res}
+    if len(steps) != 1:
+        raise SystemExit(f"ERC-20 transfer lanes take different step counts: {sorted(steps)}")
+    doc = {"P": ERC20_LANES, "max_steps": ERC20_MAX_STEPS, "n_steps": steps.pop(),
+           "halted": all(r.halted for r in res), "error": any(r.error for r in res),
+           "reverted": any(r.reverted for r in res)}
+    with open(os.path.join(FIXTURE_DIR, "erc20_transfer_steps.json"), "w") as fh:
+        json.dump(doc, fh)
+
+
 def main(names):
     """Pin the named reports (all of them by default), each in its own
     process so they run side by side."""
@@ -329,6 +360,8 @@ def main(names):
         cli[f"arith_{strat}_test"] = ["-f", arith, "--strategy", strat, *ARITH_TEST_ARGS]
     cli["arith_iprof"] = ["-f", arith, "--enable-iprof"]
     cli["arith_iprof_test"] = ["-f", arith, "--enable-iprof", *ARITH_TEST_ARGS]
+    if names == ["erc20_transfer_steps"]:
+        return _pin_erc20_steps()
     if len(names) == 1 and names[0] in cli:
         return _pin_cli(names[0], cli[names[0]])
     if len(names) == 1:
@@ -336,7 +369,8 @@ def main(names):
     _write_fixture()
     procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), n])
              for n in (names or [*cli, "config4_default", "realworld4_default",
-                                 "arith_berlin", "forkblock4_default"])]
+                                 "arith_berlin", "forkblock4_default",
+                                 "erc20_transfer_steps"])]
     if any(p.wait() for p in procs):
         raise SystemExit(1)
 

@@ -292,9 +292,9 @@ def _torch_engine(path):
     out = {}
     a, b, m, e = (word(x) for x in u256_inputs())
     out["u256"] = dict(
-        mul=u32(u256.mul_plain(a, b)), mul_wide=u32(u256.mul_wide_plain(a, b)),
-        mulmod=u32(u256._mod_wide_plain(u256.mul_wide_plain(a, b), m)),
-        addmod=u32(u256.addmod(a, b, m)), exp=u32(u256.exp_plain(a, e)))
+        mul=u32(u256.mul(a, b)), mul_wide=u32(u256.mul_wide(a, b)),
+        mulmod=u32(u256._mod_wide(u256.mul_wide(a, b), m)),
+        addmod=u32(u256.addmod(a, b, m)), exp=u32(u256.exp(a, e)))
 
     L = TEST_LIMITS
 
