@@ -2,13 +2,16 @@
 
     python3 chip_smoke.py            # all phases (needs one CUDA device)
     python3 chip_smoke.py --kernels  # build + kernel checks only
+    python3 chip_smoke.py --campaign # build + the campaign phase only
 
 Phases, each fatal on failure:
 
 1. device: the card's name and power limit (``nvidia-smi``); exits
    non-zero without CUDA;
 2. build: compiles the CUDA kernels (K1-K10) from ``mythril_tpu_torch/
-   kernels/csrc`` with nvcc, in parallel;
+   kernels/csrc`` with nvcc, in parallel, or reuses the libraries an
+   earlier process built from the same sources (the stamp in
+   ``kernels/_build``);
 3. kernels: each kernel against its plain PyTorch version on the card
    (K1-K4 and K6-K9 at the main path's width, P = 2048 lanes; K5 on 64
    lanes of edge and random operands), seeded random inputs plus edge
@@ -49,8 +52,10 @@ Phases, each fatal on failure:
 9. fork strategies, fork blocks, berlin, iprof, checkpoints at full
    width, against JAX reports pinned in ``tests/fixtures/torch_port/``:
    ``analyze`` of the arith fixture (MUL, EXP, MULMOD, ADDMOD) with each
-   of the six strategies, bfs with ``--enable-iprof`` (the profile table
-   too); the berlin gas schedule; the arith/ERC-20/ERC-721/multisig batch in fork
+   of the six strategies, bfs at the CLI defaults with
+   ``--enable-iprof`` (the profile table too), the other five at 256
+   steps and one transaction (``ARITH_SHORT_ARGS``); the berlin gas
+   schedule at that depth; the arith/ERC-20/ERC-721/multisig batch in fork
    blocks of 64 lanes with spill and in-loop migration; a checkpointed
    run resumed mid-transaction from its npz. K10 and K7 must launch on
    every run, and K6 once per feasibility sweep;
@@ -63,7 +68,20 @@ Phases, each fatal on failure:
    fused K10 launch and one host read per superstep; every lane halts
    without error or revert after the step count the reference EVM pins,
    and the frontier equals ``run_plain``'s. Lane-steps/s and host syncs
-   per superstep.
+   per superstep;
+11. campaign, after phase 7: ``analyze --corpus`` of 96 contracts (the
+   repo's runtimes repeated: real-world, the port's fixtures, the
+   goldens) in 3 batches of 32 contracts x 32 lanes, 256 steps, one
+   transaction, default limits — unpipelined (with ``--init-timeout``),
+   pipelined, killed after batch 1 (a raise from the heartbeat) and
+   resumed from its checkpoint,
+   and with an OOM injected on batch 2 walked down the ladder
+   (``halve-lanes,halve-batch``). Each run equals the JAX
+   ``CorpusCampaign`` pinned in ``tests/fixtures/torch_port/
+   campaign_default.json`` (issues of every contract, paths, quarantine,
+   statuses, ladder events, solver counts) and launches K10, K3, K6 and
+   K7; contracts/s, seconds per batch, host syncs. A second process must
+   reuse the kernel build.
 
 Prints a ``kernels`` JSON line, the card line, and last
 ``{"ok": true, "device": {...}}``.
@@ -206,6 +224,9 @@ COVERAGE_KEYS = ("lanes", "surviving_paths", "dropped_forks", "killed_infeasible
 
 
 STRATEGIES = ("bfs", "dfs", "naive-random", "weighted-random", "coverage", "beam")
+# phase 9's depth for the five strategies after bfs and for berlin (bfs
+# keeps the CLI defaults): 256 steps, one transaction
+ARITH_SHORT_ARGS = ("--max-steps", "256", "-t", "1")
 
 
 def realworld_system():
@@ -240,6 +261,66 @@ def check_report(what, issues, coverage, want):
     for k in COVERAGE_KEYS:
         if coverage[k] != want["coverage"][k]:
             fail(f"{what}: coverage {k} {coverage[k]} != {want['coverage'][k]}")
+
+
+# ---------------------------------------------------------------------------
+# phase 11: the corpus campaign. tests/torch_port_fixtures.py pins the JAX
+# package's CorpusCampaign on this corpus with these arguments
+# (tests/fixtures/torch_port/campaign_default.json)
+# ---------------------------------------------------------------------------
+
+CAMPAIGN_CONTRACTS = 96  # 3 full batches
+# the campaign's own defaults: 32 contracts x 32 lanes, 256 steps, 1 tx
+CAMPAIGN_ARGS = ("--batch-size", "32", "--lanes-per-contract", "32", "--max-steps", "256",
+                 "-t", "1")
+# batch 2 runs out of memory twice, so the ladder takes both of its rungs
+CAMPAIGN_OOM = ("--fault-inject", "oom:batch=2:times=2", "--oom-ladder",
+                "halve-lanes,halve-batch")
+CAMPAIGN_EVENT_KEYS = ("kind", "detail", "batch", "step", "lanes", "width")
+
+
+def campaign_corpus():
+    """The repo's runtimes (real-world, the port's fixtures, the goldens),
+    repeated in a fixed order to CAMPAIGN_CONTRACTS; the names sort in
+    corpus order."""
+    base = []
+    for d in ("realworld", "torch_port"):
+        base += [(f[:-len(".bin-runtime")], read_hex(fixture_path(d, f)))
+                 for f in sorted(os.listdir(fixture_path(d))) if f.endswith(".bin-runtime")]
+    base += sorted(golden_fixtures().items())
+    return [(f"c{i:03d}_{base[i % len(base)][0]}", base[i % len(base)][1])
+            for i in range(CAMPAIGN_CONTRACTS)]
+
+
+def write_corpus(path: str, contracts) -> None:
+    for name, code in contracts:
+        with open(os.path.join(path, f"{name}.hex"), "w") as fh:
+            fh.write(code.hex())
+
+
+def campaign_doc(d: dict) -> dict:
+    """What a campaign run is held to: every contract's issues (in
+    order), the campaign's path coverage (``paths_total``,
+    ``dropped_forks``), the resilience outcome (quarantine list, retries,
+    per-batch statuses) with its events (the ladder's steps), and the
+    solver's verdict counts. Timings, the solver's cache counts (its
+    cache lives as long as the process, so they depend on the runs before)
+    and the card's ``device_init`` event are left out; the JAX package's
+    name of the tier rung (``cpu``) reads as the port's (``next-tier``)."""
+    def rung(s):
+        return "next-tier" if s == "cpu" else s
+
+    return {
+        **{k: d[k] for k in ("contracts", "batches", "issues", "paths_total",
+                             "dropped_forks", "quarantined", "retries")},
+        "batch_status": [s.replace("ok-degraded:cpu", "ok-degraded:next-tier")
+                         for s in d["batch_status"]],
+        "events": [{k: rung(e[k]) if k == "step" else e[k]
+                    for k in CAMPAIGN_EVENT_KEYS if k in e}
+                   for e in d["backend_events"] if e["kind"] != "device_init"],
+        "solver": {k: d["solver"].get(k) for k in ("attempts", "sat", "unsat", "unknown")},
+        "issues_detail": d.get("issues_detail"),
+    }
 
 
 # ---------------------------------------------------------------------------
@@ -1440,7 +1521,14 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     # phase 2: build
     secs = kernels.build(verbose="--verbose" in sys.argv)
-    print(f"[2] kernels built in {secs:.1f} s", flush=True)
+    print(f"[2] kernels {kernels.BUILD_MODE} in {secs:.1f} s; card {card}", flush=True)
+    if "--campaign" in sys.argv:
+        run_campaign(dev, card)
+        print(f"[*] total {time.monotonic() - t_start:.1f} s", flush=True)
+        print(f"card: {card}")
+        print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                                 "count": count}}))
+        return 0
 
     # phase 3: kernels against their plain versions
     rng = np.random.default_rng(20261017)
@@ -1457,7 +1545,7 @@ def main() -> int:
     if "--kernels" in sys.argv:
         launches = {}
     else:
-        launches = run_paths(dev)
+        launches = run_paths(dev, card)
     line = []
     for r in results:
         t_bytes = r["nbytes"] / HBM_BYTES_PER_S * 1e3
@@ -1526,7 +1614,7 @@ def run_cli(name: str, argv, pin=None, phase="5"):
     return err, stats
 
 
-def run_paths(dev) -> dict:
+def run_paths(dev, card) -> dict:
     import torch
     from mythril_tpu_torch import kernels
     from mythril_tpu_torch.analysis import SymExecWrapper, fire_lasers
@@ -1677,9 +1765,138 @@ def run_paths(dev) -> dict:
     got = {(i.swc_id, i.address) for i in report.issues if i.contract.startswith("erc20")}
     if got != want20:
         fail(f"batch: erc20 issues {got} != {want20}")
+    for k, n in run_campaign(dev, card).items():
+        launches[k] += n
     for k, n in run_policies(dev).items():
         launches[k] += n
     profile_paths(dev, codes, names)
+    return launches
+
+
+CAMPAIGN_KERNELS = ("evm_prologue", "evm_dispatch", "evm_epilogue", "tape_append",
+                    "propagate_sweep", "fork_plan")
+
+
+def campaign_cli(corpus_dir, extra):
+    """``analyze --corpus DIR -o json`` on the card with CAMPAIGN_ARGS ->
+    (result JSON, stats). The pipeline's counters say how many host-phase
+    seconds ran behind the device phases and how long the device phases
+    waited for a host phase."""
+    from mythril_tpu_torch.core import interpreter as ci
+    from mythril_tpu_torch.interfaces.cli import main as cli_main
+    from mythril_tpu_torch.obs import metrics as obs_metrics
+    from mythril_tpu_torch.symbolic.engine import ENGINE_STATS
+
+    pipe = {k: obs_metrics.REGISTRY.counter(f"pipeline_{k}_seconds_total")
+            for k in ("host_hidden", "device_waits_host")}
+    pipe0 = {k: c.value for k, c in pipe.items()}
+    out, err = io.StringIO(), io.StringIO()
+    syncs0, steps0 = ci.HOST_SYNCS["count"], ENGINE_STATS["supersteps"]
+    t0 = time.monotonic()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = cli_main(["analyze", "--corpus", corpus_dir, *CAMPAIGN_ARGS, *extra, "-o", "json"])
+    if rc != 0:
+        fail(f"campaign {extra}: rc {rc}\n{err.getvalue()[-2000:]}")
+    doc = json.loads(out.getvalue())
+    n_steps = ENGINE_STATS["supersteps"] - steps0
+    n_syncs = ci.HOST_SYNCS["count"] - syncs0
+    stats = {"wall_s": time.monotonic() - t0, "batches": doc["batches"],
+             "s_per_batch": doc["wall_sec"] / max(1, doc["batches"]),
+             "contracts_per_s": doc["contracts_per_sec"],
+             "contracts_per_s_steady": doc["contracts_per_sec_steady"],
+             "supersteps": n_steps, "host_syncs": n_syncs,
+             "host_syncs_per_superstep": n_syncs / max(1, n_steps),
+             "batch_status": doc["batch_status"],
+             **{f"pipeline_{k}_s": c.value - pipe0[k] for k, c in pipe.items()}}
+    return doc, stats
+
+
+def run_campaign(dev, card) -> dict:
+    """Phase 11: ``analyze --corpus`` of CAMPAIGN_CONTRACTS contracts on
+    the card — unpipelined, pipelined, killed after batch 1 (a raise from
+    the heartbeat) and resumed from its checkpoint, and with an OOM on
+    batch 2 walked down the ladder. Each run's launch counts are zeroed
+    just before it and read just after; each run equals its JAX pin and
+    the port's runs equal each other where the pins do. Then a second
+    process must reuse the kernel build."""
+    import tempfile
+
+    import torch
+    from mythril_tpu_torch import kernels
+    from mythril_tpu_torch.mythril import campaign as cmod
+    from mythril_tpu_torch.resilience import InjectedKill
+
+    pins = load_json("torch_port", "campaign_default.json")
+    corpus_dir = tempfile.mkdtemp(prefix="chip_smoke_corpus_")
+    write_corpus(corpus_dir, campaign_corpus())
+    launches = dict.fromkeys(kernels.KERNELS, 0)
+    docs = {}
+
+    def one(what, extra, pin):
+        (doc, stats), counts = counted(lambda: campaign_cli(corpus_dir, extra))
+        got, want = campaign_doc(doc), campaign_doc(pins[pin])
+        if got != want:
+            bad = {k: (got[k], want[k]) for k in got if got[k] != want[k]}
+            fail(f"campaign {what}: differs from the JAX pin {pin}: {str(bad)[:3000]}")
+        for k in CAMPAIGN_KERNELS:
+            if counts[k] <= 0:
+                fail(f"campaign {what}: kernel {k} was not launched")
+        init = [e for e in doc["backend_events"] if e["kind"] == "device_init"]
+        if not init:
+            fail(f"campaign {what}: no device_init event")
+        stats["device_init"] = init[-1]["detail"]
+        for k, n in counts.items():
+            launches[k] += n
+        docs[what] = got
+        print(f"[11] campaign {what}: equals the JAX pin ({pin}); {json.dumps(stats)}; "
+              f"launches {counts}; card {card}", flush=True)
+
+    one("unpipelined", ["--no-pipeline", "--init-timeout", "300"], "plain")
+    one("pipelined", [], "plain")
+
+    ckpt = tempfile.mkdtemp(prefix="chip_smoke_campaign_ckpt_")
+    ck_args = ["--checkpoint-every", "1", "--checkpoint-dir", ckpt, "--heartbeat", "0"]
+    beat = cmod.CorpusCampaign._heartbeat
+
+    def beat_then_kill(self, done, total, res, last_out):
+        beat(self, done, total, res, last_out)
+        if done == 2:
+            raise InjectedKill("killed after batch 1")
+
+    cmod.CorpusCampaign._heartbeat = beat_then_kill
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    try:
+        campaign_cli(corpus_dir, ck_args)
+        fail("campaign: the run to be killed ran to its end")
+    except InjectedKill:
+        pass
+    finally:
+        cmod.CorpusCampaign._heartbeat = beat
+        torch.cuda.synchronize()
+        for k, n in kernels.launch_counts().items():
+            launches[k] += n
+    if not os.path.exists(os.path.join(ckpt, "campaign.json")):
+        fail("campaign: the killed run left no checkpoint")
+    print(f"[11] campaign killed after batch 1 with a checkpoint; card {card}", flush=True)
+    one("resumed", ck_args, "plain")
+    one("oom ladder", list(CAMPAIGN_OOM), "oom")
+    if not docs["pipelined"] == docs["unpipelined"] == docs["resumed"]:
+        fail("campaign: the pipelined, unpipelined and resumed runs differ")
+
+    probe = ("import json, sys; sys.path.insert(0, sys.argv[1]); "
+             "from mythril_tpu_torch import kernels; kernels.build(); "
+             "print(json.dumps({'mode': kernels.BUILD_MODE, 's': kernels.BUILD_SECONDS}))")
+    r = subprocess.run([sys.executable, "-c", probe, ROOT], capture_output=True, text=True,
+                       timeout=600)
+    if r.returncode != 0:
+        fail(f"second process: rc {r.returncode}\n{r.stderr[-2000:]}")
+    second = json.loads(r.stdout.strip().splitlines()[-1])
+    if second["mode"] != "reused":
+        fail(f"second process: kernels {second['mode']}, not reused")
+    print(f"[11] kernel build: this process {kernels.BUILD_MODE} in "
+          f"{kernels.BUILD_SECONDS:.3f} s, a second process {second['mode']} in "
+          f"{second['s']:.3f} s; card {card}", flush=True)
     return launches
 
 
@@ -1733,8 +1950,9 @@ def wrapper_run(what, build, pin, keys=COVERAGE_KEYS):
 
 def run_policies(dev) -> dict:
     """Phase 9: the fork strategies, fork blocks, berlin, the profiler and
-    checkpoints at full width (64 lanes per contract, 512 steps, -t 2),
-    each run's launch counts zeroed just before it and read just after."""
+    checkpoints at full width (64 lanes per contract; 512 steps, -t 2, but
+    the five strategies after bfs and berlin at ARITH_SHORT_ARGS), each
+    run's launch counts zeroed just before it and read just after."""
     import tempfile
 
     from mythril_tpu_torch import kernels
@@ -1749,13 +1967,15 @@ def run_policies(dev) -> dict:
 
     arith = fixture_path("torch_port", "arith.bin-runtime")
     for strategy in STRATEGIES:
-        # the bfs run also keeps the instruction profile (its report is the
-        # same with or without it)
+        # the bfs run, at the CLI defaults, also keeps the instruction
+        # profile (its report is the same with or without it); the other
+        # strategies run at ARITH_SHORT_ARGS' depth
         iprof = ["--enable-iprof"] if strategy == "bfs" else []
+        depth = [] if strategy == "bfs" else list(ARITH_SHORT_ARGS)
+        pin = f"arith_{strategy}.json" if strategy == "bfs" else f"arith_{strategy}_short.json"
         (err, stats), counts = counted(lambda: run_cli(
-            f"arith --strategy {strategy} {' '.join(iprof)}",
-            ["-f", arith, "--strategy", strategy, *iprof], pin=f"arith_{strategy}.json",
-            phase="9"))
+            f"arith --strategy {strategy} {' '.join(iprof + depth)}",
+            ["-f", arith, "--strategy", strategy, *iprof, *depth], pin=pin, phase="9"))
         require_launches(f"arith {strategy}", counts, stats["sweeps"], ARITH_KERNELS)
         add(counts)
         if iprof:
@@ -1768,8 +1988,10 @@ def run_policies(dev) -> dict:
 
     kw = dict(lanes_per_contract=64, max_steps=512, transaction_count=2, device=dev)
     berlin = dataclasses.replace(DEFAULT_LIMITS, gas_schedule="berlin")
+    short = dict(kw, max_steps=int(ARITH_SHORT_ARGS[1]), transaction_count=int(ARITH_SHORT_ARGS[3]))
     _, counts, sweeps = wrapper_run("arith berlin", lambda: SymExecWrapper(
-        [arith_code()], contract_names=["MAIN"], limits=berlin, **kw), "arith_berlin.json")
+        [arith_code()], contract_names=["MAIN"], limits=berlin, **short),
+        "arith_berlin_short.json")
     require_launches("arith berlin", counts, sweeps, ARITH_KERNELS)
     add(counts)
     system = forkblock_system()

@@ -252,7 +252,10 @@ class SymExecWrapper:
     chunk seam; ``resume_from`` (such a file, written by this package or
     the JAX one) restarts the run at the checkpoint's transaction and
     step, and the transactions before it contribute no detection
-    context."""
+    context. ``warm_shapes`` is the set of chunk sizes already run in
+    this process (a campaign passes one per engine shape class): the
+    ``--execution-timeout`` pacing takes no sample from a size's first
+    run, which pays the kernel build."""
 
     def __init__(
         self,
@@ -280,6 +283,7 @@ class SymExecWrapper:
         dyn_loader=None,
         migrate_every: int = 8,
         resume_from: Optional[str] = None,
+        warm_shapes: Optional[set] = None,
     ):
         from ..plugin.loader import LaserPluginLoader
 
@@ -314,6 +318,10 @@ class SymExecWrapper:
         self._parked_end = 0
         self._rebalanced = 0
         self._chunk = max(1, deadline_chunk_steps)
+        # chunk sizes this process has run already (for a campaign: one
+        # set per engine shape class, shared by its batches); the first
+        # run of a size pays the kernel build and is not a pacing sample
+        self._warm_chunk_shapes = set() if warm_shapes is None else warm_shapes
         self._deadline_at = (None if execution_timeout is None
                              else time.monotonic() + execution_timeout)
         images = [ContractImage.from_bytecode(c, limits.max_code) for c in bytecodes]
@@ -394,10 +402,18 @@ class SymExecWrapper:
                     remaining = self._deadline_at - time.monotonic()
                     if remaining < sec_per_step * n:
                         n = q
+                cold = n not in self._warm_chunk_shapes
                 with obs_trace.timer("superstep", tx=self._cur_tx, steps=n,
-                                     done=steps_done) as sp:
+                                     done=steps_done, cold=cold) as sp:
                     sf = run_chunk(sf, n, self.spill)
-                sec_per_step = max(sec_per_step, sp.elapsed / n)
+                # a size's first run pays the kernel build: not a sample
+                if cold:
+                    self._warm_chunk_shapes.add(n)
+                    obs_metrics.REGISTRY.counter(
+                        "engine_compiles_total",
+                        help="distinct chunk shapes compiled").inc()
+                else:
+                    sec_per_step = max(sec_per_step, sp.elapsed / n)
                 obs_metrics.REGISTRY.counter("engine_supersteps_total").inc(n)
                 steps_done += n
                 act_h, freq_h, run_h = seam(sf)

@@ -70,3 +70,31 @@ TEST_LIMITS = LimitsConfig(
     loop_bound=4,
     loop_slots=4,
 )
+
+
+#: the degradation ladder of the card. The card is the port's only tier,
+#: so it is the floor: as on the JAX package's floor tier, the ladder
+#: ends at batching (halve the lanes, then the batch width) and no rung
+#: moves a batch off the card
+CARD_OOM_LADDER = ("halve-lanes", "halve-batch")
+
+
+@dataclass(frozen=True)
+class ResilienceConfig:
+    """Fault-isolation knobs of the corpus campaign (see
+    ``resilience.py``). ``batch_timeout`` is off by default (the
+    single-contract ``--execution-timeout`` is a budget; the watchdog is
+    for unattended campaigns)."""
+
+    batch_timeout: float | None = None  # seconds per campaign batch
+    max_batch_retries: int = 1          # re-attempts before bisection
+    # RESOURCE_EXHAUSTED degradation ladder, walked in order and
+    # cumulatively: shrink the work until the batch fits instead of
+    # aborting the run
+    oom_ladder: tuple = CARD_OOM_LADDER
+    # batches between durable campaign-checkpoint writes (1 = every
+    # batch: a kill at any instant loses at most one batch)
+    checkpoint_every: int = 1
+
+
+DEFAULT_RESILIENCE = ResilienceConfig()

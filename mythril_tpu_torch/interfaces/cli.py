@@ -1,16 +1,20 @@
 """``myth``-style command line for the PyTorch engine.
 
-Commands: ``analyze`` (``a``), ``list-detectors``, ``version``. The flags
-of ``analyze`` are the JAX package's for what this engine runs, plus
-``--device {cuda,cpu}`` (default ``cuda``). ``--creation-code PATH``
-runs the constructor transaction first; ``--strategy`` takes the six
-fork strategies; ``--enable-iprof`` prints the executed-opcode profile
-on stderr after the report; ``--plugin-dir DIR`` loads external plugins.
+Commands: ``analyze`` (``a``), ``campaign-merge``, ``list-detectors``,
+``version``. The flags of ``analyze`` are the JAX package's for what this
+engine runs, plus ``--device {cuda,cpu}`` (default ``cuda``).
+``--creation-code PATH`` runs the constructor transaction first;
+``--strategy`` takes the six fork strategies; ``--enable-iprof`` prints
+the executed-opcode profile on stderr after the report; ``--plugin-dir
+DIR`` loads external plugins. ``--corpus DIR`` runs the corpus campaign
+(``mythril/campaign.py``) with its batch, watchdog, fault-injection,
+OOM-ladder, pipeline, checkpoint and heartbeat flags;
 ``--checkpoint-dir`` is the campaign's checkpoint directory, as in the
 JAX package: single-contract ``analyze`` writes no checkpoint there.
-Flags of parts that are not ported yet (corpus
-campaigns, RPC loading, the call-depth limit) are accepted by the parser
-and refused with an error before any device work.
+Flags of parts that are not ported yet (RPC loading, the call-depth
+limit, fleet campaigns, engine workers, backend tiers, multi-host
+splits, the shared verdict store) are accepted by the parser and refused
+with an error before any device work.
 
 Run as ``python -m mythril_tpu_torch <command> ...``.
 """
@@ -82,24 +86,85 @@ def create_parser() -> argparse.ArgumentParser:
                    help="load external plugins (detection modules and/or laser "
                         "plugins) from every *.py in DIR")
     a.add_argument("--checkpoint-dir", metavar="DIR",
-                   help="campaign checkpoint directory (single-contract analyze "
-                        "writes none)")
+                   help="campaign checkpoint directory (resume-able; single-contract "
+                        "analyze writes none)")
+    a.add_argument("--corpus", metavar="DIR",
+                   help="campaign mode: analyze every *.hex/*.bin under DIR in "
+                        "constant-shape batches, with checkpoint/resume; prints a "
+                        "throughput+issues JSON")
+    a.add_argument("--batch-size", type=int, default=32,
+                   help="contracts per batch (campaign mode)")
+    a.add_argument("--batch-timeout", type=float, default=None, metavar="SEC",
+                   help="campaign mode: hard wall-clock watchdog per batch — a "
+                        "wedged device call becomes a batch failure (retried, "
+                        "then bisected to quarantine the poison contract)")
+    a.add_argument("--init-timeout", type=float, default=None, metavar="SEC",
+                   help="campaign mode: deadline for the card's initialization and "
+                        "kernel build (or reuse) before the first batch; on "
+                        "failure the campaign stops with an error")
+    a.add_argument("--max-batch-retries", type=int, default=1, metavar="N",
+                   help="campaign mode: whole-batch re-attempts after a failure "
+                        "before bisecting it (default 1)")
+    a.add_argument("--fault-inject", metavar="SPEC",
+                   help="campaign mode (testing): inject deterministic faults, e.g. "
+                        "'raise:contract=c002', 'hang:batch=1', "
+                        "'raise:batch=0:times=1', 'kill:batch=2', "
+                        "'oom:batch=1:times=2'; ';'-separated specs")
+    a.add_argument("--oom-ladder", metavar="LIST", default=None,
+                   help="campaign mode: comma-separated degradation rungs walked "
+                        "(cumulatively) when a batch runs out of memory, from "
+                        "'halve-lanes', 'halve-batch', 'next-tier' (alias 'cpu'; "
+                        "the card is the only tier, so it replays the batch at the "
+                        "current shape on the card); default: halve-lanes,"
+                        "halve-batch; 'none' disables degradation — an OOM then "
+                        "falls to retry/bisect")
+    a.add_argument("--pipeline", dest="pipeline", action="store_true", default=True,
+                   help="campaign mode (default ON): overlap batch i's host phase "
+                        "(detection modules + witness search) with batch i+1's "
+                        "device execution, and write checkpoints from a background "
+                        "thread; results are identical to --no-pipeline and any "
+                        "fault drains back to the serial retry/bisect path")
+    a.add_argument("--no-pipeline", dest="pipeline", action="store_false",
+                   help="campaign mode: strictly serial batches")
+    a.add_argument("--solver-workers", type=int, default=1, metavar="N",
+                   help="threads for the detection-module/witness-search pool in "
+                        "the campaign host phase (N>1 implies --parallel-solving)")
+    a.add_argument("--checkpoint-every", type=int, default=1, metavar="N",
+                   help="campaign mode: durable checkpoint write every N batches "
+                        "(default 1 — a kill at any instant loses at most one "
+                        "batch)")
+    a.add_argument("--heartbeat", type=float, default=None, metavar="SEC",
+                   help="campaign mode: print a one-line progress heartbeat to "
+                        "stderr at most every SEC seconds")
     # accepted so that they can be refused with a clear message
-    for flag, meta in (("--corpus", "DIR"), ("-a", "ADDRESS"), ("--rpc", "URI"),
-                       ("--call-depth-limit", "N")):
+    for flag, meta in (("-a", "ADDRESS"), ("--rpc", "URI"), ("--call-depth-limit", "N"),
+                       ("--fleet", "DIR"), ("--worker-isolation", "MODE"),
+                       ("--backend-tiers", "LIST"), ("--num-hosts", "N"),
+                       ("--host-index", "I"), ("--solver-store", "DIR")):
         a.add_argument(flag, metavar=meta, default=None, help="not supported by this engine")
+    a.add_argument("--fleet-follow", action="store_true", help="not supported by this engine")
     ld = sub.add_parser("list-detectors", help="list registered detection modules")
     ld.add_argument("--plugin-dir", metavar="DIR", default=None,
                     help="also list the detection modules of the plugins in DIR")
     sub.add_parser("version", help="print version")
+    cm = sub.add_parser("campaign-merge",
+                        help="merge campaign JSON results into corpus-level metrics")
+    cm.add_argument("results", nargs="+", metavar="JSON",
+                    help="campaign output files (one per run or host)")
     return p
 
 
 _CUT_FLAGS = (
-    ("corpus", "--corpus (campaigns)"),
     ("a", "-a/--address"),
     ("rpc", "--rpc"),
     ("call_depth_limit", "--call-depth-limit"),
+    ("fleet", "--fleet (fleet campaigns)"),
+    ("fleet_follow", "--fleet-follow (fleet campaigns)"),
+    ("worker_isolation", "--worker-isolation (engine workers)"),
+    ("backend_tiers", "--backend-tiers (backend tiers)"),
+    ("num_hosts", "--num-hosts (multi-host campaigns)"),
+    ("host_index", "--host-index (multi-host campaigns)"),
+    ("solver_store", "--solver-store (the shared verdict store)"),
 )
 
 
@@ -155,6 +220,8 @@ def exec_analyze(args) -> int:
               file=sys.stderr)
         raise SystemExit(2)
     _refuse_cuts(args)
+    if args.corpus:
+        return _exec_campaign(args)
     if args.checkpoint_dir:
         print("warning: --checkpoint-dir has no effect on single-contract analyze "
               "(it is the campaign's checkpoint directory)", file=sys.stderr)
@@ -198,6 +265,109 @@ def exec_analyze(args) -> int:
     return 0
 
 
+def _exec_campaign(args) -> int:
+    """Corpus campaign on the card, supervised by the resilience layer
+    (watchdog, OOM ladder, retry, bisect-to-quarantine)."""
+    import json
+
+    from ..resilience import FaultInjector, parse_ladder
+
+    try:
+        oom_ladder = parse_ladder(args.oom_ladder)
+        fault_injector = FaultInjector.from_string(args.fault_inject)
+    except ValueError as e:
+        print(f"error: {e}", file=sys.stderr)
+        raise SystemExit(2)
+    from ..mythril.campaign import CorpusCampaign, DeviceInitError, load_corpus_dir
+    from ..symbolic import SymSpec
+
+    if args.create_timeout is not None:
+        print("warning: --create-timeout has no effect in campaign mode",
+              file=sys.stderr)
+    campaign = CorpusCampaign(
+        load_corpus_dir(args.corpus),
+        batch_size=args.batch_size,
+        lanes_per_contract=args.lanes_per_contract,
+        limits=_limits_for(args),
+        spec=SymSpec(storage=not args.concrete_storage),
+        max_steps=(args.max_depth if args.max_depth is not None else args.max_steps),
+        solver_timeout=(args.solver_timeout / 1000.0
+                        if args.solver_timeout is not None else None),
+        solver_iters=args.solver_iters,
+        parallel_solving=args.parallel_solving,
+        transaction_count=args.transaction_count,
+        modules=args.modules.split(",") if args.modules else None,
+        checkpoint_dir=args.checkpoint_dir,
+        execution_timeout=args.execution_timeout,
+        plugins=tuple(_discover_plugins(args.plugin_dir)),
+        enable_iprof=args.enable_iprof,
+        batch_timeout=args.batch_timeout,
+        max_batch_retries=args.max_batch_retries,
+        fault_injector=fault_injector,
+        oom_ladder=oom_ladder,
+        checkpoint_every=args.checkpoint_every,
+        heartbeat_every=args.heartbeat,
+        pipeline=args.pipeline,
+        solver_workers=args.solver_workers,
+        device=args.device,
+        init_timeout=args.init_timeout,
+    )
+
+    def progress(done, total, dt, n_issues):
+        print(f"batch {done}/{total}: {dt:.1f}s, {n_issues} issue(s) so far",
+              file=sys.stderr)
+
+    try:
+        res = campaign.run(progress=progress)
+    except DeviceInitError as e:
+        print(f"error: the card did not come up: {e}", file=sys.stderr)
+        return 2
+    out = res.as_dict()
+    if args.outform in ("json", "jsonv2"):
+        out["issues_detail"] = res.issues
+    print(json.dumps(out, indent=1))
+    return 0
+
+
+def exec_campaign_merge(args) -> int:
+    """Combine campaign result JSONs. A missing or malformed input is a
+    one-line error and a clean nonzero exit, never a traceback."""
+    import json
+    import os
+
+    from ..mythril.campaign import merge_campaigns
+
+    results = []
+    for p in args.results:
+        if os.path.isdir(p):
+            print(f"error: campaign-merge: {p} is a directory; fleet ledgers are not "
+                  "supported by the PyTorch engine yet", file=sys.stderr)
+            return 2
+        try:
+            with open(p) as fh:
+                doc = json.load(fh)
+        except OSError as e:
+            print(f"error: campaign-merge: cannot read {p}: "
+                  f"{e.strerror or e}", file=sys.stderr)
+            return 2
+        except ValueError as e:
+            print(f"error: campaign-merge: {p} is not valid JSON ({e})",
+                  file=sys.stderr)
+            return 2
+        if not isinstance(doc, dict):
+            print(f"error: campaign-merge: {p}: expected a campaign "
+                  "result object", file=sys.stderr)
+            return 2
+        results.append(doc)
+    try:
+        merged = merge_campaigns(results)
+    except ValueError as e:
+        print(f"error: campaign-merge: {e}", file=sys.stderr)
+        return 2
+    print(json.dumps(merged, indent=1))
+    return 0
+
+
 def exec_list_detectors(args) -> int:
     from ..analysis import ModuleLoader
 
@@ -214,6 +384,8 @@ def main(argv: Optional[List[str]] = None) -> int:
         return exec_analyze(args)
     if args.command == "list-detectors":
         return exec_list_detectors(args)
+    if args.command == "campaign-merge":
+        return exec_campaign_merge(args)
     if args.command == "version":
         from .. import __version__
 

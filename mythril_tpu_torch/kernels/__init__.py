@@ -25,7 +25,10 @@ Each source has a plain C interface. :func:`build` compiles them with
 ``nvcc`` — one process per source, all started together — into shared
 libraries under ``kernels/_build/`` (listed in ``.gitignore``) and loads
 them with ``ctypes``; nothing includes PyTorch's headers, so a build takes
-seconds. A kernel is built at its first launch, never at import.
+seconds. A kernel is built at its first launch, never at import. A stamp
+beside the libraries records what they were built from (the sources,
+the flags, the nvcc version); a later process whose stamp matches loads
+them without running nvcc.
 
 Each wrapper checks device, dtype, shape and contiguity, allocates its
 outputs with ``torch.empty`` (K10: copies of the frontier fields it
@@ -43,6 +46,8 @@ arithmetic runs inside K10 on the card, and their plain versions in
 from __future__ import annotations
 
 import ctypes
+import hashlib
+import json
 import os
 import shutil
 import subprocess
@@ -74,6 +79,9 @@ NVCC_FLAGS = ["-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _LOCK = threading.Lock()
 _LIBS: dict = {}
 BUILD_SECONDS = None
+#: ``"compiled"`` when this process ran nvcc, ``"reused"`` when it loaded
+#: the libraries an earlier process built from the same sources
+BUILD_MODE = None
 
 
 class KernelBuildError(RuntimeError):
@@ -87,34 +95,97 @@ def _nvcc() -> str:
     raise KernelBuildError("nvcc not found: the CUDA kernels need the CUDA toolkit")
 
 
+def source_stamp(nvcc: str) -> str:
+    """What a build depends on: the sha256 of every file under ``csrc/``
+    (by relative path and content), ``NVCC_FLAGS`` and the output of
+    ``nvcc --version``."""
+    h = hashlib.sha256()
+    for d, dirs, files in os.walk(_CSRC):
+        dirs.sort()
+        for f in sorted(files):
+            path = os.path.join(d, f)
+            h.update(os.path.relpath(path, _CSRC).encode() + b"\0")
+            with open(path, "rb") as fh:
+                h.update(hashlib.sha256(fh.read()).digest())
+    h.update(json.dumps(NVCC_FLAGS).encode())
+    version = subprocess.run([nvcc, "--version"], capture_output=True, text=True)
+    if version.returncode != 0:
+        raise KernelBuildError(f"{nvcc} --version failed:\n{version.stdout}{version.stderr}")
+    h.update(version.stdout.encode())
+    return h.hexdigest()
+
+
+def _stamp_path() -> str:
+    return os.path.join(BUILD_DIR, "stamp")
+
+
+def _lib_path(name: str) -> str:
+    return os.path.join(BUILD_DIR, f"lib{name}.so")
+
+
+def ensure_built(nvcc: str, verbose: bool = False) -> str:
+    """Bring ``_build/`` up to date with the sources: ``"reused"`` when
+    the stamp beside the libraries matches :func:`source_stamp` and every
+    library is there, else ``"compiled"`` after running nvcc on every
+    source (one process each, all started together). ``verbose`` always
+    compiles, so that ptxas prints its register and spill lines. Each
+    library is written under a name of its own and renamed into place,
+    the stamp last, so that a process never loads half a file or a
+    library of other sources."""
+    stamp = source_stamp(nvcc)
+    try:
+        with open(_stamp_path()) as fh:
+            have = fh.read().strip()
+    except OSError:
+        have = None
+    if (not verbose and have == stamp
+            and all(os.path.exists(_lib_path(n)) for n in SOURCES)):
+        return "reused"
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    try:
+        os.remove(_stamp_path())
+    except FileNotFoundError:
+        pass
+    tag = f".{os.getpid()}.{threading.get_ident()}.tmp"
+    procs = {}
+    for name, src in SOURCES.items():
+        cmd = [nvcc, *NVCC_FLAGS, "-o", _lib_path(name) + tag, os.path.join(_CSRC, src)]
+        if verbose:
+            cmd.insert(1, "-Xptxas=-v")
+        procs[name] = subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    failed = []
+    for name, proc in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"{name}:\n{log}")
+        elif verbose and log:
+            print(f"[nvcc {name}]\n{log}", flush=True)
+    if failed:
+        for name in SOURCES:
+            if os.path.exists(_lib_path(name) + tag):
+                os.remove(_lib_path(name) + tag)
+        raise KernelBuildError("nvcc failed for " + "\n".join(failed))
+    for name in SOURCES:
+        os.replace(_lib_path(name) + tag, _lib_path(name))
+    with open(_stamp_path() + tag, "w") as fh:
+        fh.write(stamp + "\n")
+    os.replace(_stamp_path() + tag, _stamp_path())
+    return "compiled"
+
+
 def build(verbose: bool = False) -> float:
-    """Compile every kernel source (in parallel) and load the libraries.
-    Returns the build's wall time in seconds; later calls return at once."""
-    global BUILD_SECONDS
+    """Make sure the libraries match the sources (:func:`ensure_built`:
+    compiled by this process or reused from an earlier one, as
+    ``BUILD_MODE`` says) and load them. Returns the seconds that took;
+    later calls return at once."""
+    global BUILD_SECONDS, BUILD_MODE
     with _LOCK:
         if _LIBS:
             return BUILD_SECONDS
-        nvcc = _nvcc()
-        os.makedirs(BUILD_DIR, exist_ok=True)
         t0 = time.monotonic()
-        procs = {}
-        for name, src in SOURCES.items():
-            out = os.path.join(BUILD_DIR, f"lib{name}.so")
-            cmd = [nvcc, *NVCC_FLAGS, "-o", out, os.path.join(_CSRC, src)]
-            if verbose:
-                cmd.insert(1, "-Xptxas=-v")
-            procs[name] = (out, subprocess.Popen(
-                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-        failed = []
-        for name, (out, proc) in procs.items():
-            log, _ = proc.communicate()
-            if proc.returncode != 0:
-                failed.append(f"{name}:\n{log}")
-            elif verbose and log:
-                print(f"[nvcc {name}]\n{log}", flush=True)
-        if failed:
-            raise KernelBuildError("nvcc failed for " + "\n".join(failed))
-        libs = {name: ctypes.CDLL(out) for name, (out, _) in procs.items()}
+        mode = ensure_built(_nvcc(), verbose)
+        libs = {name: ctypes.CDLL(_lib_path(name)) for name in SOURCES}
         vp, ci = ctypes.c_void_p, ctypes.c_int
         libs["u256_divmod"].divmod_u256.argtypes = [vp, vp, vp, vp, ci, vp]
         libs["keccak256"].keccak256.argtypes = [vp, vp, vp, ci, ci, vp]
@@ -136,6 +207,7 @@ def build(verbose: bool = False) -> float:
             getattr(libs[lib], fn).restype = ci
         _LIBS.update(libs)
         BUILD_SECONDS = time.monotonic() - t0
+        BUILD_MODE = mode
         return BUILD_SECONDS
 
 
@@ -164,9 +236,29 @@ def _stream(device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
+#: the CUDA runtime's text for the errors a launch can return that the
+#: campaign's resilience layer sorts (``resilience.classify_backend_error``
+#: reads the message): an allocation failure, and the sticky errors after
+#: which the CUDA context is lost
+_CUDA_ERROR_TEXT = {
+    2: "out of memory",
+    46: "CUDA-capable device(s) busy or unavailable",
+    100: "no CUDA-capable device is detected",
+    214: "uncorrectable ECC error encountered",
+    700: "an illegal memory access was encountered",
+    710: "device-side assert triggered",
+    714: "hardware stack error",
+    715: "an illegal instruction was encountered",
+    716: "misaligned address",
+    718: "invalid program counter",
+    719: "unspecified launch failure",
+}
+
+
 def _raise_on(err: int, name: str):
     if err != 0:
-        raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
+        raise RuntimeError(f"{name}: CUDA launch failed with error {err} "
+                           f"({_CUDA_ERROR_TEXT.get(err, 'see cudaError_t')})")
 
 
 def _launch_counter(fn):

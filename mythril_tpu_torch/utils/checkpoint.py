@@ -6,7 +6,10 @@ leaves (``leaf<i>::base/pc``, ``leaf<i>::tape_op``, ... in the JAX
 dtypes: u32 limbs as ``uint32``) plus a JSON meta blob (tx index, steps
 done), so a ``frontier.npz`` written by the JAX package's
 ``save_frontier`` loads here and resumes on the card, and the other way
-round.
+round. A campaign checkpoint is a checksummed JSON state (batch cursor,
+issues, resilience fields) in the JAX package's format too;
+:class:`BackgroundCheckpointWriter` writes it off the pipelined
+campaign's commit path.
 
 Every writer goes tmp-file -> flush -> fsync -> atomic rename, rotates
 the previous good file to ``<path>.1`` first, and embeds a schema
@@ -24,6 +27,7 @@ import io
 import json
 import logging
 import os
+import threading
 from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
@@ -33,8 +37,9 @@ from ..obs import trace as obs_trace
 
 log = logging.getLogger(__name__)
 
-#: current on-disk schema of the npz frontier checkpoint (the JAX
-#: package's). v1 = the unversioned format, which still loads.
+#: current on-disk schema of the npz frontier checkpoint and the JSON
+#: campaign checkpoint (the JAX package's). v1 = the unversioned
+#: formats, which still load.
 CHECKPOINT_SCHEMA = 2
 
 #: rotated last-known-good suffix: ``save`` moves the previous file to
@@ -355,8 +360,194 @@ def load_frontier_resilient(path: str, template) -> Tuple[Any, Dict, str]:
     raise first_err  # type: ignore[misc]
 
 
+# --- campaign (JSON) checkpoints --------------------------------------
+
+
+def save_json_checkpoint(path: str, state: Dict, rotate: bool = True) -> None:
+    """Durable, checksummed JSON state: the payload is wrapped as
+    ``{"__schema__": 2, "sha256": <hex of canonical state>, "state":
+    ...}`` and written tmp + fsync + rotate + atomic rename."""
+    with obs_trace.timer("checkpoint_save", what="campaign",
+                         file=os.path.basename(path)) as sp:
+        payload = json.dumps(state, sort_keys=True)
+        doc = {"__schema__": CHECKPOINT_SCHEMA,
+               "sha256": hashlib.sha256(payload.encode()).hexdigest(),
+               "state": state}
+        durable_write(path, json.dumps(doc).encode(), rotate=rotate)
+    obs_metrics.REGISTRY.histogram(
+        "checkpoint_write_seconds",
+        help="durable checkpoint save latency").observe(sp.elapsed)
+
+
+def load_json_checkpoint(path: str) -> Dict:
+    """Verified state dict from ``path``. A v1 file (bare state dict, no
+    ``__schema__`` wrapper) loads as-is. Raises
+    :class:`CheckpointCorrupt` on torn JSON / checksum mismatch /
+    unsupported schema, ``FileNotFoundError`` when absent."""
+    with obs_trace.span("checkpoint_load", what="campaign",
+                        file=os.path.basename(path)):
+        return _load_json_checkpoint_inner(path)
+
+
+def _load_json_checkpoint_inner(path: str) -> Dict:
+    with open(path, "rb") as fh:
+        raw = fh.read()
+    try:
+        doc = json.loads(raw.decode())
+    except (ValueError, UnicodeDecodeError) as e:
+        raise CheckpointCorrupt(f"{path}: unreadable JSON ({e})") from e
+    if not isinstance(doc, dict):
+        raise CheckpointCorrupt(f"{path}: expected a JSON object")
+    if "__schema__" not in doc:
+        return doc  # v1: the file IS the state
+    version = int(doc["__schema__"])
+    if version > CHECKPOINT_SCHEMA:
+        raise CheckpointCorrupt(
+            f"{path}: schema v{version} is newer than this reader")
+    state = doc.get("state")
+    if not isinstance(state, dict):
+        raise CheckpointCorrupt(f"{path}: missing state payload")
+    want = doc.get("sha256")
+    got = hashlib.sha256(
+        json.dumps(state, sort_keys=True).encode()).hexdigest()
+    if want != got:
+        raise CheckpointCorrupt(f"{path}: state sha256 mismatch")
+    return state
+
+
+class BackgroundCheckpointWriter:
+    """Serialize + durably write campaign JSON checkpoints off the
+    critical path (the pipelined campaign's host phase must not stall
+    on fsync).
+
+    One worker thread; submissions COALESCE (latest state wins). That is
+    safe because every submitted state is a complete, self-contained
+    snapshot: skipping an intermediate one only widens the replay window
+    after a crash, it never breaks consistency. Each write goes through
+    :func:`save_json_checkpoint` — the identical v2
+    tmp+fsync+rotate+atomic-rename contract as the synchronous path, so
+    a kill at ANY instant (including mid-background-write) still leaves
+    either the previous durable file or its rotated ``.1`` loadable.
+
+    A write failure is remembered and re-raised at the next ``submit``
+    or ``flush``/``close`` — a campaign must not silently run on without
+    durability. The thread is a daemon: an abrupt interpreter death
+    behaves exactly like kill -9 mid-write, which the loaders' checksum
+    + rotation fallback already covers.
+    """
+
+    def __init__(self, path: str):
+        self.path = path
+        self._cond = threading.Condition()
+        self._pending: Optional[Tuple[Dict, Optional[Any]]] = None
+        self._writing = False
+        self._stop = False
+        self._error: Optional[BaseException] = None
+        self._thread = threading.Thread(
+            target=self._run, daemon=True,
+            name=f"ckpt-writer:{os.path.basename(path)}")
+        self._thread.start()
+
+    def _run(self) -> None:
+        while True:
+            with self._cond:
+                while self._pending is None and not self._stop:
+                    self._cond.wait()
+                if self._pending is None:
+                    return  # stopped with nothing left to write
+                state, on_durable = self._pending
+                self._pending = None
+                self._writing = True
+            try:
+                save_json_checkpoint(self.path, state)
+                if on_durable is not None:
+                    on_durable()
+            except Exception as e:  # noqa: BLE001 — surfaced at submit
+                with self._cond:
+                    self._error = e
+            finally:
+                with self._cond:
+                    self._writing = False
+                    self._cond.notify_all()
+
+    def _raise_pending_error_locked(self) -> None:
+        if self._error is not None:
+            e, self._error = self._error, None
+            raise e
+
+    def submit(self, state: Dict,
+               on_durable: Optional[Any] = None) -> None:
+        """Queue ``state`` for a durable write (replacing any not-yet-
+        started queued state). ``on_durable`` (zero-arg callable) runs in
+        the writer thread after the rename lands. The caller must not
+        mutate ``state`` afterwards — pass a snapshot."""
+        with self._cond:
+            self._raise_pending_error_locked()
+            if self._stop:
+                raise RuntimeError(f"checkpoint writer for {self.path} "
+                                   "is closed")
+            self._pending = (state, on_durable)
+            self._cond.notify_all()
+
+    def flush(self) -> None:
+        """Block until everything submitted so far is durably on disk."""
+        with self._cond:
+            while self._pending is not None or self._writing:
+                self._cond.wait()
+            self._raise_pending_error_locked()
+
+    def close(self, discard_pending: bool = False) -> None:
+        """Stop the writer. By default the queued state (if any) is
+        written first; ``discard_pending`` drops it — the simulated-kill
+        path, where flushing would grant durability a real SIGKILL never
+        would. An in-flight write always completes (it cannot be
+        interrupted, same as a real kill racing the rename)."""
+        with self._cond:
+            if discard_pending:
+                self._pending = None
+            self._stop = True
+            self._cond.notify_all()
+        self._thread.join(timeout=60.0)
+        if not discard_pending:
+            with self._cond:
+                self._raise_pending_error_locked()
+
+
+def load_json_checkpoint_resilient(
+        path: str) -> Tuple[Optional[Dict], Optional[str]]:
+    """``(state, source_path)`` trying ``path`` then ``<path>.1``.
+    ``(None, None)`` when no checkpoint exists at all (fresh start).
+    Raises :class:`CheckpointCorrupt` only when a newest-file corruption
+    has NO healthy rotated copy to fall back to AND a rotated file
+    exists but is itself corrupt — a torn first-ever checkpoint (no
+    rotation yet) degrades to a fresh start, because nothing older was
+    ever persisted."""
+    try:
+        return load_json_checkpoint(path), path
+    except FileNotFoundError:
+        return None, None
+    except CheckpointCorrupt as newest_err:
+        _quarantine_corrupt(path)
+        try:
+            state = load_json_checkpoint(path + ROTATE_SUFFIX)
+        except FileNotFoundError:
+            # first checkpoint torn before any rotation: at most one
+            # batch of work existed, and none of it was durably recorded
+            log.warning("checkpoint %s corrupt (%s) with no rotated "
+                        "copy; starting fresh", path, newest_err)
+            return None, None
+        except CheckpointCorrupt as e:
+            raise CheckpointCorrupt(
+                f"{path} and its rotated copy are both corrupt "
+                f"({newest_err}; {e})") from e
+        log.warning("checkpoint %s corrupt (%s); resumed from rotated "
+                    "copy", path, newest_err)
+        return state, path + ROTATE_SUFFIX
+
+
 __all__ = [
-    "CHECKPOINT_SCHEMA", "CheckpointCorrupt", "ROTATE_SUFFIX", "durable_write",
-    "exclusive_write", "fsync_dir", "load_frontier", "load_frontier_resilient",
-    "save_frontier",
+    "BackgroundCheckpointWriter", "CHECKPOINT_SCHEMA", "CheckpointCorrupt",
+    "ROTATE_SUFFIX", "durable_write", "exclusive_write", "fsync_dir",
+    "load_frontier", "load_frontier_resilient", "load_json_checkpoint",
+    "load_json_checkpoint_resilient", "save_frontier", "save_json_checkpoint",
 ]

@@ -25,8 +25,9 @@ from test_goldens import GOLDEN_DIR, _fixtures, _issue_key
 from torch_port_fixtures import FIXTURE_DIR, precompiles_files
 
 GOLDENS = sorted(_fixtures())
-CUT_FLAGS = [["--corpus", "d"], ["-a", "0x" + "11" * 20], ["--rpc", "http://localhost:1"],
-             ["--call-depth-limit", "3"]]
+# a corpus campaign runs since the campaign slice; its fleet mode is cut
+CUT_FLAGS = [["--corpus", "d", "--fleet", "ledger"], ["-a", "0x" + "11" * 20],
+             ["--rpc", "http://localhost:1"], ["--call-depth-limit", "3"]]
 FORMER_CUTS = [["--checkpoint-dir"], ["--strategy", "dfs"], ["--enable-iprof"],
                ["--plugin-dir"]]
 CREATION_ARGS = ["--limits-profile", "test", "--lanes-per-contract", "16", "--max-steps", "384"]

@@ -1,9 +1,10 @@
 """The PyTorch package stands alone: no module of ``mythril_tpu_torch``
 (and not ``chip_smoke.py``) imports JAX or the JAX package — the host
 natives it copied (``ops/natives_host.py``, ``bn128.py``, ``blake2.py``,
-``secp256k1.py``) included —, an analyze run loads neither, and the
-smoke script's golden fixtures are the fixtures of
-``tests/test_goldens.py``."""
+``secp256k1.py``) and the campaign's modules (``resilience.py``,
+``fleet.py``, ``mythril/campaign.py``) included —, an analyze run and a
+corpus campaign load neither, and the smoke script's golden fixtures
+are the fixtures of ``tests/test_goldens.py``."""
 
 import ast
 import importlib.util
@@ -64,6 +65,44 @@ def test_cpu_analyze_loads_neither_jax_nor_the_jax_package():
     assert r.returncode == 0, r.stdout + r.stderr
 
 
+def test_cpu_campaign_loads_neither_jax_nor_the_jax_package(tmp_path):
+    # the corpus campaign and campaign-merge; the merge is dict math and
+    # loads no torch either
+    corpus = tmp_path / "corpus"
+    corpus.mkdir()
+    (corpus / "c000.hex").write_text("600435ff")  # 4 CALLDATALOAD SELFDESTRUCT
+    (corpus / "c001.hex").write_text("00")
+    script = (
+        "import contextlib, io, json, sys\n"
+        "from mythril_tpu_torch.interfaces.cli import main\n"
+        "out = io.StringIO()\n"
+        "with contextlib.redirect_stdout(out):\n"
+        "    assert main(['campaign-merge', sys.argv[2]]) == 0\n"
+        "merge_torch = 'torch' in sys.modules\n"
+        "with contextlib.redirect_stdout(out):\n"
+        "    assert main(['analyze', '--corpus', sys.argv[1], '--device', 'cpu',\n"
+        "                 '--limits-profile', 'test', '--batch-size', '2',\n"
+        "                 '--lanes-per-contract', '8', '--max-steps', '64', '-t', '1',\n"
+        "                 '-m', 'AccidentallyKillable', '-o', 'json']) == 0\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'mythril_tpu'))\n"
+        "print('LOADED', bad, 'merge loaded torch:', merge_torch)\n"
+        "sys.exit(1 if bad or merge_torch else 0)\n")
+    result = tmp_path / "result.json"
+    result.write_text('{"contracts": 1, "batches": 1, "issues": 0, "wall_sec": 1.0}')
+    env = dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="1")
+    r = subprocess.run([sys.executable, "-c", script, str(corpus), str(result)], cwd=ROOT,
+                       env=env, capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stdout + r.stderr
+
+
+def test_the_campaign_modules_are_checked():
+    new = {os.path.join(PKG, *p) for p in (("resilience.py",), ("fleet.py",),
+                                            ("mythril", "campaign.py"),
+                                            ("utils", "checkpoint.py"))}
+    assert new <= set(_sources())
+
+
 def test_the_copied_host_natives_are_checked():
     copied = {os.path.join(PKG, "ops", f"{m}.py")
               for m in ("natives_host", "bn128", "blake2", "secp256k1", "sha256")}
@@ -97,6 +136,7 @@ def test_chip_smoke_systems_equal_the_test_fixtures():
     assert smoke.config4_system() == tpf.config4_system()
     assert smoke.forkblock_system() == tpf.forkblock_system()
     assert smoke.STRATEGIES == tpf.STRATEGIES
+    assert list(smoke.ARITH_SHORT_ARGS) == tpf.ARITH_SHORT_ARGS
 
 
 def _sweep_args(torch):

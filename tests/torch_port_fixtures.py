@@ -40,6 +40,7 @@ Regenerate the fixtures and the pinned JAX reports with
 take minutes on a CPU; each runs in its own process).
 """
 
+import functools
 import json
 import os
 import sys
@@ -225,6 +226,9 @@ STRATEGIES = ("bfs", "dfs", "naive-random", "weighted-random", "coverage", "beam
 # the arith test-profile CLI runs of the CPU tests
 ARITH_TEST_ARGS = ["--limits-profile", "test", "--lanes-per-contract", "16",
                    "--max-steps", "192"]
+# chip_smoke.py's phase 9 runs the five other strategies and berlin at this
+# cut depth (the bfs run keeps the CLI defaults)
+ARITH_SHORT_ARGS = ["--max-steps", "256", "-t", "1"]
 CONFIG4 = ["Caller", "Router", "Vault"]
 COVERAGE_KEYS = ("lanes", "surviving_paths", "dropped_forks", "killed_infeasible",
                  "lanes_errored", "instruction_coverage_pct")
@@ -290,10 +294,12 @@ def _pin_wrapper(name):
         system = config4_system()
         sym = SymExecWrapper([r for _, _, r in system], contract_names=[n for n, _, _ in system],
                              creation_bytecodes=[c for _, c, _ in system], **kw)
-    elif name == "arith_berlin":
+    elif name in ("arith_berlin", "arith_berlin_short"):
         import dataclasses
 
         kw["limits"] = dataclasses.replace(DEFAULT_LIMITS, gas_schedule="berlin")
+        if name == "arith_berlin_short":
+            kw.update(max_steps=int(ARITH_SHORT_ARGS[1]), transaction_count=int(ARITH_SHORT_ARGS[3]))
         sym = SymExecWrapper([read_hex(arith_file())], contract_names=["MAIN"], **kw)
     elif name == "forkblock4_default":
         system = forkblock_system()
@@ -338,6 +344,141 @@ def _pin_erc20_steps():
         json.dump(doc, fh)
 
 
+# ---------------------------------------------------------------------------
+# the corpus campaign: the JAX package's CorpusCampaign, pinned for the CPU
+# tests (tests/test_torch_campaign.py) and for chip_smoke.py's phase 11
+# ---------------------------------------------------------------------------
+
+
+@functools.lru_cache(maxsize=None)
+def smoke():
+    """chip_smoke.py, whose corpus, arguments and result normalizer the
+    campaign pins share."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+CAMPAIGN_TEST_GOLDENS = ("swc106_killable", "swc101_add_overflow", "swc110_assert_fail",
+                         "clean_store", "swc105_drain")
+# 5 contracts in batches of 2: the last batch is padded
+CAMPAIGN_TEST_KW = dict(batch_size=2, lanes_per_contract=8, max_steps=64, transaction_count=1)
+CAMPAIGN_TEST_ARGS = ["--batch-size", "2", "--lanes-per-contract", "8", "--max-steps", "64",
+                      "-t", "1", "--limits-profile", "test"]
+# name -> (fault spec, --oom-ladder, campaign keywords). The hang case comes
+# last, when every shape of the plain run has run once in the process (a JAX
+# compile would outlast its watchdog). "cpu" is the JAX name of the tier rung
+CAMPAIGN_TEST_CASES = {
+    "plain": (None, None, {}),
+    "plain_serial": (None, None, {"pipeline": False}),
+    "raise": ("raise:contract=c002", None, {}),
+    "oom": ("oom:batch=1:times=2", "halve-lanes,halve-batch", {}),
+    "oom_tier": ("oom:batch=1:times=2", "halve-lanes,cpu", {}),
+    "hang": ("hang:batch=1:times=1", None, {"batch_timeout": 6.0}),
+}
+CAMPAIGN_CLI_ARGS = [*CAMPAIGN_TEST_ARGS, "--fault-inject", "oom:batch=1:times=1",
+                     "--max-batch-retries", "1", "--checkpoint-every", "2"]
+
+
+def campaign_test_corpus():
+    fx = smoke().golden_fixtures()
+    return [(f"c{i:03d}", fx[n]) for i, n in enumerate(CAMPAIGN_TEST_GOLDENS)]
+
+
+def campaign_cases(campaign, resilience, limits, tmpdir, **engine_kw):
+    """Every case of CAMPAIGN_TEST_CASES, then a run killed at batch 2 and
+    resumed from its checkpoint, through ``campaign``/``resilience`` (the
+    JAX package's modules or the port's) -> {case: result dict with
+    ``issues_detail``}."""
+    corpus = campaign_test_corpus()
+
+    def run(fault=None, ladder=None, **kw):
+        c = campaign.CorpusCampaign(
+            corpus, limits=limits, pipeline=kw.pop("pipeline", True),
+            fault_injector=resilience.FaultInjector.from_string(fault),
+            oom_ladder=None if ladder is None else resilience.parse_ladder(ladder),
+            **CAMPAIGN_TEST_KW, **engine_kw, **kw)
+        res = c.run()
+        return {**res.as_dict(), "issues_detail": res.issues}
+
+    out = {name: run(fault, ladder, **kw)
+           for name, (fault, ladder, kw) in CAMPAIGN_TEST_CASES.items()}
+    # the killed run is serial, so that its checkpoints are written before
+    # the kill; the resumed run is pipelined
+    ckpt = os.path.join(str(tmpdir), "ckpt")
+    try:
+        run("kill:batch=2", checkpoint_dir=ckpt, pipeline=False)
+        raise AssertionError("the run to be killed ran to its end")
+    except resilience.InjectedKill:
+        pass
+    state, _ = campaign.load_json_checkpoint_resilient(os.path.join(ckpt, "campaign.json"))
+    out["resume"] = run(checkpoint_dir=ckpt)
+    out["resume"]["resumed_at_batch"] = state["next_batch"]
+    return out
+
+
+def _pin_campaign_test():
+    """tests/fixtures/torch_port/campaign_test.json: the JAX results of every
+    case (whole), their merge, and the JAX CLI's --corpus output."""
+    import subprocess
+    import tempfile
+
+    sys.path.insert(0, ROOT)
+    import mythril_tpu  # noqa: F401
+    from mythril_tpu import resilience
+    from mythril_tpu.config import TEST_LIMITS
+    from mythril_tpu.mythril import campaign
+
+    tmp = tempfile.mkdtemp(prefix="campaign_pin_")
+    runs = campaign_cases(campaign, resilience, TEST_LIMITS, tmp)
+    corpus_dir = os.path.join(tmp, "corpus")
+    os.mkdir(corpus_dir)
+    smoke().write_corpus(corpus_dir, campaign_test_corpus())
+    cli = subprocess.run([sys.executable, "-m", "mythril_tpu", "analyze", "--corpus", corpus_dir,
+                          *CAMPAIGN_CLI_ARGS, "-o", "json"],
+                         cwd=ROOT, capture_output=True, text=True, check=True)
+    doc = {"runs": runs, "merge": campaign.merge_campaigns([runs["plain"], runs["raise"]]),
+           "cli": json.loads(cli.stdout)}
+    with open(os.path.join(FIXTURE_DIR, "campaign_test.json"), "w") as fh:
+        json.dump(doc, fh, indent=1, sort_keys=True)
+
+
+def _pin_campaign_default():
+    """tests/fixtures/torch_port/campaign_default.json: chip_smoke.py's
+    phase 11 (its corpus and arguments, default limits) through the JAX
+    CorpusCampaign, plain and with its OOM fault (the whole results;
+    chip_smoke compares them through ``campaign_doc``)."""
+    sys.path.insert(0, ROOT)
+    import mythril_tpu  # noqa: F401
+    from mythril_tpu.config import DEFAULT_LIMITS
+    from mythril_tpu.mythril.campaign import CorpusCampaign
+    from mythril_tpu.resilience import FaultInjector, parse_ladder
+
+    sm = smoke()
+    args = dict(zip(sm.CAMPAIGN_ARGS[::2], sm.CAMPAIGN_ARGS[1::2]))
+    oom = dict(zip(sm.CAMPAIGN_OOM[::2], sm.CAMPAIGN_OOM[1::2]))
+    kw = dict(limits=DEFAULT_LIMITS, batch_size=int(args["--batch-size"]),
+              lanes_per_contract=int(args["--lanes-per-contract"]),
+              max_steps=int(args["--max-steps"]), transaction_count=int(args["-t"]),
+              pipeline=True)
+    corpus = sm.campaign_corpus()
+    from mythril_tpu.fleet import corpus_fingerprint
+
+    doc = {"corpus": corpus_fingerprint(corpus), "args": list(sm.CAMPAIGN_ARGS),
+           "oom_args": list(sm.CAMPAIGN_OOM)}
+    for name, extra in (("plain", {}), ("oom", dict(
+            fault_injector=FaultInjector.from_string(oom["--fault-inject"]),
+            oom_ladder=parse_ladder(oom["--oom-ladder"])))):
+        res = CorpusCampaign(corpus, **kw, **extra).run()
+        doc[name] = {**res.as_dict(), "issues_detail": res.issues}
+        print(f"campaign_default {name}: {res.as_dict()['wall_sec']} s", flush=True)
+    with open(os.path.join(FIXTURE_DIR, "campaign_default.json"), "w") as fh:
+        json.dump(doc, fh, indent=1, sort_keys=True)
+
+
 def main(names):
     """Pin the named reports (all of them by default), each in its own
     process so they run side by side."""
@@ -358,10 +499,15 @@ def main(names):
     for strat in STRATEGIES:
         cli[f"arith_{strat}"] = ["-f", arith, "--strategy", strat]
         cli[f"arith_{strat}_test"] = ["-f", arith, "--strategy", strat, *ARITH_TEST_ARGS]
+        cli[f"arith_{strat}_short"] = ["-f", arith, "--strategy", strat, *ARITH_SHORT_ARGS]
     cli["arith_iprof"] = ["-f", arith, "--enable-iprof"]
     cli["arith_iprof_test"] = ["-f", arith, "--enable-iprof", *ARITH_TEST_ARGS]
     if names == ["erc20_transfer_steps"]:
         return _pin_erc20_steps()
+    if names == ["campaign_test"]:
+        return _pin_campaign_test()
+    if names == ["campaign_default"]:
+        return _pin_campaign_default()
     if len(names) == 1 and names[0] in cli:
         return _pin_cli(names[0], cli[names[0]])
     if len(names) == 1:
@@ -369,8 +515,9 @@ def main(names):
     _write_fixture()
     procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), n])
              for n in (names or [*cli, "config4_default", "realworld4_default",
-                                 "arith_berlin", "forkblock4_default",
-                                 "erc20_transfer_steps"])]
+                                 "arith_berlin", "arith_berlin_short", "forkblock4_default",
+                                 "erc20_transfer_steps", "campaign_test",
+                                 "campaign_default"])]
     if any(p.wait() for p in procs):
         raise SystemExit(1)
 
