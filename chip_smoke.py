@@ -21,12 +21,17 @@ Phases, each fatal on failure:
    at fork blocks of 64 lanes and of P. K10 (the concrete EVM step)
    against ``superstep_plain`` / ``prologue_plain`` / ``dispatch_plain``
    / ``epilogue_plain`` (whose arithmetic and SHA3 are plain PyTorch on
-   the card too) over every frontier field: the vmtests batch
-   stepped to quiescence, a seeded random-opcode stress batch of 4096
-   lanes (edge words of every class, every trap) under both gas
-   schedules with the profiler on and a random ``skip`` mask, and the
-   ERC-20 transfer run. Times each kernel, its plain version and the
-   bound the card's rates put on the same work;
+   the card too) over every frontier field, each entry point through its
+   launch descriptor in place on fields owned once, over consecutive
+   steps: the vmtests batch stepped to quiescence, a seeded random-opcode
+   stress batch of 4096 lanes (edge words of every class, every trap)
+   under both gas schedules with the profiler on and a random ``skip``
+   mask, the fused entry point's count of running lanes, each entry point
+   once standalone (its input unchanged), and the ERC-20 transfer run.
+   Times each kernel, its plain version and the bound the card's rates
+   put on the same work; K10 also through the wrapper, on the device
+   alone, its bind, the standalone copying path, a sweep of block sizes
+   and the stress dispatch by opcode class;
 4. goldens: the 20 golden fixtures at the goldens' settings (test
    limits, 16 lanes, 192 steps), the real-world batch and BASELINE
    config 4 at their tests' limits, issue for issue against
@@ -48,7 +53,12 @@ Phases, each fatal on failure:
    pushed and popped, K4/K5 launches;
 7. batch: 32 contracts (16 x ERC-20, 16 x ERC-721) x 64 lanes = 2048
    lanes, default limits, 512 steps, -t 2, then the detection modules;
-   wall time, lane-steps/s, contracts/s, host syncs, peak memory;
+   wall time, lane-steps/s, contracts/s, host syncs, peak memory; one
+   launch of each K10 split entry point per superstep. Then the batch
+   again under the held-input check: the frontier passed to each
+   ``sym_run`` call is copied to the host first and must equal, field for
+   field, what the caller still holds after it; K10's fields are copied
+   once per call; the issues equal the pin;
 9. fork strategies, fork blocks, berlin, iprof, checkpoints at full
    width, against JAX reports pinned in ``tests/fixtures/torch_port/``:
    ``analyze`` of the arith fixture (MUL, EXP, MULMOD, ADDMOD) with each
@@ -65,10 +75,12 @@ Phases, each fatal on failure:
    its top kernels;
 10. concrete path, run first after the kernel checks: ``run`` on the
    ERC-20 transfer workload (4096 lanes, default limits, 256 steps), one
-   fused K10 launch and one host read per superstep; every lane halts
-   without error or revert after the step count the reference EVM pins,
-   and the frontier equals ``run_plain``'s. Lane-steps/s and host syncs
-   per superstep;
+   fused K10 launch a superstep in place on fields copied once, the
+   device's count of running lanes read every ``RUN_READ_EVERY`` launches;
+   every lane halts without error or revert after the step count the
+   reference EVM pins, the frontier equals ``run_plain``'s and the input
+   is unchanged. ms per superstep, lane-steps/s and host syncs per
+   superstep;
 11. campaign, after phase 7: ``analyze --corpus`` of 96 contracts (the
    repo's runtimes repeated: real-world, the port's fixtures, the
    goldens) in 3 batches of 32 contracts x 32 lanes, 256 steps, one
@@ -80,8 +92,9 @@ Phases, each fatal on failure:
    ``CorpusCampaign`` pinned in ``tests/fixtures/torch_port/
    campaign_default.json`` (issues of every contract, paths, quarantine,
    statuses, ladder events, solver counts) and launches K10, K3, K6 and
-   K7; contracts/s, seconds per batch, host syncs. A second process must
-   reuse the kernel build.
+   K7; contracts/s, seconds per batch, host syncs; the unpipelined run
+   under the held-input check of phase 7. A second process must reuse
+   the kernel build.
 
 Prints a ``kernels`` JSON line, the card line, and last
 ``{"ok": true, "device": {...}}``.
@@ -589,27 +602,6 @@ def time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def time_owned(launch, f, entry: str, reps: int) -> float:
-    """Mean ms of ``launch(g)`` over ``reps`` fresh copies ``g`` of the
-    fields ``entry`` writes in ``f``, each copy made outside the timed
-    window (the launch runs in place on it)."""
-    import torch
-    from mythril_tpu_torch import kernels
-
-    launch(kernels.own_evm_fields(f, entry))
-    total = 0.0
-    for _ in range(reps):
-        g = kernels.own_evm_fields(f, entry)
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        launch(g)
-        end.record()
-        torch.cuda.synchronize()
-        total += start.elapsed_time(end)
-    return total / reps
-
-
 def device_us(e) -> float:
     """Self device time (us) of a torch.profiler ``key_averages`` entry."""
     return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
@@ -633,6 +625,25 @@ def kernel_device_ms(fn, kernel: str, reps: int = 1) -> float:
     events = [e for e in prof.key_averages() if kernel in e.key]
     n, us = sum(e.count for e in events), sum(device_us(e) for e in events)
     return us / n / 1e3 if n and us else float("nan")
+
+
+def kernels_device_ms(fn, kernels, reps: int = 1) -> dict:
+    """:func:`kernel_device_ms` of several kernels from one trace."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for k in kernels:
+        events = [e for e in prof.key_averages() if f"{k}_kernel" in e.key]
+        n, us = sum(e.count for e in events), sum(device_us(e) for e in events)
+        out[k] = us / n / 1e3 if n and us else float("nan")
+    return out
 
 
 def max_abs_err(x, y) -> int:
@@ -990,7 +1001,8 @@ def check_k9(dev, rng):
 def sweep_snapshot(dev):
     """A real frontier just before a sweep: the 32-contract batch (16 x
     ERC-20, 16 x arith) after 20 supersteps with no sweep, at the default
-    limits (P = 2048, T = 512, 128 constraint slots)."""
+    limits (P = 2048, T = 512, 128 constraint slots). -> (sym frontier,
+    env, corpus)."""
     import torch
     from mythril_tpu_torch.config import DEFAULT_LIMITS
     from mythril_tpu_torch.core import Corpus, make_env
@@ -1005,10 +1017,10 @@ def sweep_snapshot(dev):
     active[::64] = True
     sf = make_sym_frontier(P_MAIN, DEFAULT_LIMITS, contract_id=cid, active=active,
                            n_contracts=2, device=dev)
-    sf = sym_run(sf, make_env(P_MAIN, device=dev), corpus, SymSpec(), DEFAULT_LIMITS,
-                 max_steps=20, propagate_every=0)
+    env = make_env(P_MAIN, device=dev)
+    sf = sym_run(sf, env, corpus, SymSpec(), DEFAULT_LIMITS, max_steps=20, propagate_every=0)
     torch.cuda.synchronize()
-    return sf
+    return sf, env, corpus
 
 
 def random_tapes(dev, rng):
@@ -1127,7 +1139,7 @@ def check_k6(dev, rng):
 
     err = 0
     for what, sf in (("random tapes", random_tapes(dev, rng)),
-                     ("batch snapshot", sweep_snapshot(dev))):
+                     ("batch snapshot", sweep_snapshot(dev)[0])):
         args = _sweep_args(sf)
         inf = kernels.propagate_sweep(*args)
         want, inf_p = propagate_feasibility_plain(sf)
@@ -1300,18 +1312,46 @@ def step_ops(f, op, run) -> int:
     return ops
 
 
+def split_step(k10, g, env, corpus, skip=None):
+    """One split step in place through the descriptor ``k10``, as the
+    symbolic superstep launches it -> (op, run, old_pc)."""
+    from mythril_tpu_torch import kernels
+
+    _, op, run, old_pc = kernels.evm_prologue(g, corpus, k10.berlin, k10)
+    kernels.evm_dispatch(g, env, corpus, op, run, old_pc, skip, k10)
+    kernels.evm_epilogue(g, op, run, old_pc, k10)
+    return op, run, old_pc
+
+
+# consecutive in-place steps of the stress batch
+STRESS_STEPS = 3
+# threads per block K10 is measured at (PERF.md's sweep)
+K10_THREADS = (32, 64, 128, 256)
+K10_SPLIT = ("evm_prologue", "evm_dispatch", "evm_epilogue")
+
+
 def check_k10(dev, rng):
     """K10 against its plain versions on the card, every frontier field
-    with max_abs_err 0: the vmtests batch stepped to quiescence (iprof
-    on); the stress batch at P_K10 lanes under both gas schedules through
-    the fused entry point and through prologue -> dispatch (a random skip
-    mask) -> epilogue; the ERC-20 transfer workload at P_K10 run in place
-    to its end. The plain versions' arithmetic and SHA3 are plain PyTorch
-    on the card too, so they share no device code with K10. Times each
-    entry point in place: the fused one over the ERC-20 run (as ``run``
-    launches it), the split ones on the stress batch's first step, each
-    on fresh copies of the fields it writes, and the copies (which the
-    symbolic superstep makes) on their own."""
+    with max_abs_err 0, each entry point through a descriptor in place on
+    fields owned once (as ``run`` and ``sym_run`` launch it), over
+    consecutive steps: the vmtests batch stepped to quiescence (iprof on),
+    fused and split; the stress batch at P_K10 lanes under both gas
+    schedules, split (a random skip mask each step) and fused, with the
+    fused entry point's count of running lanes; each entry point once
+    standalone (on copies: its input must stay as it was); the ERC-20
+    transfer workload at P_K10 run in place to its end. The plain versions'
+    arithmetic and SHA3 are plain PyTorch on the card too, so they share
+    no device code with K10.
+
+    Times: the fused entry point over the ERC-20 run (P = 4096), the split
+    ones over consecutive steps of a real symbolic frontier at P_MAIN —
+    CUDA events around each wrapper call (its bind included), the kernel
+    alone (torch.profiler), the descriptor's bind with nothing changed and
+    inside a real ``sym_run`` — beside standalone launches (copies of the
+    written fields and a full marshal every launch, the launch path before
+    the descriptor).
+    Then the block-size sweep and the stress dispatch's device time per
+    opcode class."""
     import torch
     from mythril_tpu_torch import kernels
     from mythril_tpu_torch.config import DEFAULT_LIMITS
@@ -1319,6 +1359,7 @@ def check_k10(dev, rng):
     from mythril_tpu_torch.workloads import erc20_transfer_workload
 
     L = DEFAULT_LIMITS
+    EvmStep = kernels.EvmStep
     err = dict.fromkeys(K10_REPLACES, 0)
 
     def note(name, got, want, what):
@@ -1328,63 +1369,125 @@ def check_k10(dev, rng):
             print(f"[3] {name} {what}: fields differ from the plain version: {bad}", flush=True)
             err[name] = max(err[name], max(abs(e) for e in bad.values()), 1)
 
-    # the vmtests batch, step by step to quiescence
+    def note_step(name, got, want, what):
+        for x, y, k in zip(got, want, ("op", "run", "old_pc")):
+            if not torch.equal(x, y):
+                print(f"[3] {name} {what}: {k} differs", flush=True)
+                err[name] = max(err[name], 1)
+
+    def note_count(k10, want, what):
+        if int(k10.n_running[0]) != int(want.running.sum()):
+            print(f"[3] evm_superstep {what}: n_running {int(k10.n_running[0])} != "
+                  f"{int(want.running.sum())} running lanes", flush=True)
+            err["evm_superstep"] = max(err["evm_superstep"], 1)
+
+    def split_checked(k10, g, h, env, corpus, skip, what):
+        """One in-place split step of ``g`` against the plain step of
+        ``h`` -> the plain step's frontier."""
+        fp, op, run, old_pc = ci.prologue_plain(h, corpus, k10.berlin)
+        _, kop, krun, kpc = kernels.evm_prologue(g, corpus, k10.berlin, k10)
+        note("evm_prologue", g, fp, what)
+        note_step("evm_prologue", (kop, krun, kpc), (op, run, old_pc), what)
+        dp = ci.dispatch_plain(fp, env, corpus, op, run, old_pc, skip=skip)
+        kernels.evm_dispatch(g, env, corpus, kop, krun, kpc, skip, k10)
+        note("evm_dispatch", g, dp, what)
+        ep = ci.epilogue_plain(dp, op, run, old_pc)
+        kernels.evm_epilogue(g, kop, krun, kpc, k10)
+        note("evm_epilogue", g, ep, what)
+        return ep
+
+    def fused_checked(k10, g, h, env, corpus, what):
+        fp, op, run, old_pc = ci.prologue_plain(h, corpus, k10.berlin)
+        want = ci.epilogue_plain(ci.dispatch_plain(fp, env, corpus, op, run, old_pc),
+                                 op, run, old_pc)
+        kernels.evm_superstep(g, env, corpus, k10.berlin, k10)
+        note("evm_superstep", g, want, what)
+        note_count(k10, want, what)
+        return want
+
+    # the vmtests batch, step by step to quiescence: fused and split, each
+    # in place on fields owned once
     f, env, corpus = vmtests_batch(L, dev)
     f = f.attach_iprof()
+    kf, ks = EvmStep.on_card(dev), EvmStep.on_card(dev)
+    gf, gs = kernels.own_evm_fields(f), kernels.own_evm_fields(f)
+    hf = hs = f
     steps = 0
-    while bool(f.running.any()):
-        want = ci.superstep_plain(f, env, corpus)
-        note("evm_superstep", kernels.evm_superstep(f, env, corpus), want, f"vmtests step {steps}")
-        f, steps = want, steps + 1
-    # the stress batch: a few steps, both schedules, fused and split
-    f, env, corpus = evm_stress_batch(P_K10, L, rng, dev)
-    split = {}
-    for step in range(3):
-        for berlin in (False, True):
-            fp, op, run, old_pc = ci.prologue_plain(f, corpus, berlin)
-            kp, kop, krun = kernels.evm_prologue(f, corpus, berlin)
-            note("evm_prologue", kp, fp, f"stress step {step} berlin={berlin}")
-            if not (torch.equal(kop, op) and torch.equal(krun, run)):
-                print(f"[3] evm_prologue stress step {step}: op/run differ", flush=True)
-                err["evm_prologue"] = max(err["evm_prologue"], 1)
-            skip = torch.as_tensor(rng.random(P_K10) < 0.3, device=dev)
-            dp = ci.dispatch_plain(fp, env, corpus, op, run, old_pc, skip=skip)
-            note("evm_dispatch", kernels.evm_dispatch(fp, env, corpus, op, run, old_pc, skip),
-                 dp, f"stress step {step} berlin={berlin} (skip)")
-            ep = ci.epilogue_plain(dp, op, run, old_pc)
-            note("evm_epilogue", kernels.evm_epilogue(dp, op, run, old_pc), ep,
-                 f"stress step {step} berlin={berlin}")
-            want = ci.epilogue_plain(ci.dispatch_plain(fp, env, corpus, op, run, old_pc),
-                                     op, run, old_pc)
-            note("evm_superstep", kernels.evm_superstep(f, env, corpus, berlin), want,
-                 f"stress step {step} berlin={berlin}")
-            if step == 0 and not berlin:
-                split = dict(f=f, fp=fp, dp=dp, op=op, run=run, old_pc=old_pc, skip=skip,
-                             env=env, corpus=corpus)
-        f = want
-    classes = set(ci.CLASS_TABLE[op[run].cpu().numpy()].tolist())
-    print(f"[3] evm stress: {P_K10} lanes, 3 steps x 2 schedules; classes in the last step "
-          f"{sorted(classes)}; trap codes {sorted(set(f.err_code.cpu().tolist()))}", flush=True)
+    while bool(hf.running.any()):
+        hf = fused_checked(kf, gf, hf, env, corpus, f"vmtests step {steps}")
+        hs = split_checked(ks, gs, hs, env, corpus, None, f"vmtests step {steps}")
+        steps += 1
+    print(f"[3] evm vmtests: {steps} consecutive in-place steps, fused and split", flush=True)
 
-    # the ERC-20 run at P_K10: in place, as `run` launches it
+    # the stress batch: STRESS_STEPS consecutive steps in place, both
+    # schedules, split (a random skip mask) and fused
+    f, env, corpus = evm_stress_batch(P_K10, L, rng, dev)
+    for berlin in (False, True):
+        ks, kf = EvmStep.on_card(dev, berlin), EvmStep.on_card(dev, berlin)
+        gs, gf = kernels.own_evm_fields(f), kernels.own_evm_fields(f)
+        hs = hf = f
+        for step in range(STRESS_STEPS):
+            what = f"stress step {step} berlin={berlin}"
+            skip = torch.as_tensor(rng.random(P_K10) < 0.3, device=dev)
+            hs = split_checked(ks, gs, hs, env, corpus, skip, what)
+            hf = fused_checked(kf, gf, hf, env, corpus, what)
+    classes = set(ci.CLASS_TABLE[ci.prologue_plain(f, corpus)[1].cpu().numpy()].tolist())
+    print(f"[3] evm stress: {P_K10} lanes, {STRESS_STEPS} in-place steps x 2 schedules, split "
+          f"and fused; classes in the first step {sorted(classes)}; trap codes after "
+          f"{sorted(set(hs.err_code.cpu().tolist()))}", flush=True)
+
+    # each entry point standalone, on copies: the input stays as it was
+    fp, op, run, old_pc = ci.prologue_plain(f, corpus)
+    skip = torch.as_tensor(rng.random(P_K10) < 0.3, device=dev)
+    dp = ci.dispatch_plain(fp, env, corpus, op, run, old_pc, skip=skip)
+    ep = ci.epilogue_plain(dp, op, run, old_pc)
+    for name, fn, f_in, want in (
+            ("evm_prologue", lambda x: kernels.evm_prologue(x, corpus)[0], f, fp),
+            ("evm_dispatch", lambda x: kernels.evm_dispatch(x, env, corpus, op, run, old_pc,
+                                                            skip), fp, dp),
+            ("evm_epilogue", lambda x: kernels.evm_epilogue(x, op, run, old_pc), dp, ep)):
+        before = {k: v.clone() for k, v in vars(f_in).items() if isinstance(v, torch.Tensor)}
+        note(name, fn(f_in), want, "standalone")
+        changed = [k for k, v in before.items() if not torch.equal(v, getattr(f_in, k))]
+        if changed:
+            print(f"[3] {name} standalone changed its input: {changed}", flush=True)
+            err[name] = max(err[name], 1)
+
+    # the ERC-20 run at P_K10: in place through one descriptor, as `run`
+    # launches it (bind once, then bare launches) and through the wrapper
     pin = load_json("torch_port", "erc20_transfer_steps.json")
     n_steps = pin["n_steps"]
     _, f0, env0, corpus0 = erc20_transfer_workload(P_K10, L, device=dev)
 
-    def kernel_run():
+    def fused_run(mode):
+        """-> (frontier, ms per superstep): ``bare`` binds once and
+        launches; ``wrapper`` calls evm_superstep with the descriptor;
+        ``marshal`` with a new descriptor each launch (a full
+        marshal); ``copies`` standalone (a copy and a marshal a launch)."""
         g = kernels.own_evm_fields(f0)
+        k = EvmStep.on_card(dev)
+        k.bind("superstep", g, env0, corpus0)
+        launch = {"bare": lambda: k.launch("superstep"),
+                  "wrapper": lambda: kernels.evm_superstep(g, env0, corpus0, k10=k),
+                  "marshal": lambda: kernels.evm_superstep(g, env0, corpus0,
+                                                           k10=EvmStep.on_card(dev)),
+                  "copies": None}[mode]
         torch.cuda.synchronize()
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
         for _ in range(n_steps):
-            kernels.evm_superstep(g, env0, corpus0, own=True)
+            if launch is None:
+                g = kernels.evm_superstep(g, env0, corpus0)
+            else:
+                launch()
         end.record()
         torch.cuda.synchronize()
-        return g, start.elapsed_time(end)
+        return g, start.elapsed_time(end) / n_steps
 
-    kernel_run()  # warm-up
-    runs = [kernel_run() for _ in range(3)]
-    g, nbytes, nops = f0, 0, 0
+    fused_run("wrapper")  # warm-up
+    fused = {m: [fused_run(m)[1] for _ in range(3)] for m in ("bare", "wrapper", "marshal",
+                                                             "copies")}
+    g, plain_total = f0, 0.0
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
     for _ in range(n_steps):
@@ -1392,76 +1495,172 @@ def check_k10(dev, rng):
     end.record()
     torch.cuda.synchronize()
     plain_total = start.elapsed_time(end)
-    note("evm_superstep", runs[0][0], g, "ERC-20 run")
+    note("evm_superstep", fused_run("bare")[0], g, "ERC-20 run")
+    nbytes = nops = 0
     h = f0
     for _ in range(n_steps):  # the work of each step, from its inputs
         _, op, run, _ = ci.prologue_plain(h, corpus0)
         nbytes += step_bytes(h, op, run)
         nops += step_ops(h, op, run)
         h = ci.superstep_plain(h, env0, corpus0)
-    out = [dict(name="evm_superstep", max_abs_err=err["evm_superstep"],
-                ms=sum(t for _, t in runs) / len(runs) / n_steps, plain_ms=plain_total / n_steps,
-                nbytes=nbytes / n_steps, ops=nops / n_steps)]
-    dev_ms = kernel_device_ms(kernel_run, "evm_superstep_kernel")
-    print(f"[3] evm_superstep ERC-20 run: {P_K10} lanes, {n_steps} in-place launches in "
-          f"{', '.join(f'{t:.3f}' for _, t in runs)} ms; plain {plain_total:.1f} ms; "
-          f"device {dev_ms:.4f} ms a launch (torch.profiler)", flush=True)
+    dev_ms = kernel_device_ms(lambda: fused_run("bare"), "evm_superstep_kernel")
+    mean = {m: sum(t) / len(t) for m, t in fused.items()}
+    print(f"[3] evm_superstep ERC-20 run: {P_K10} lanes, {n_steps} in-place launches; ms per "
+          f"launch (CUDA events, 3 runs each): bare "
+          f"{', '.join(f'{t:.4f}' for t in fused['bare'])}; through the wrapper "
+          f"{', '.join(f'{t:.4f}' for t in fused['wrapper'])}; a new descriptor each launch "
+          f"{mean['marshal']:.4f}; standalone with copies {mean['copies']:.4f}; "
+          f"device {dev_ms:.4f} (torch.profiler); plain {plain_total / n_steps:.3f}",
+          flush=True)
+    out = [dict(name="evm_superstep", max_abs_err=err["evm_superstep"], ms=mean["wrapper"],
+                plain_ms=plain_total / n_steps, nbytes=nbytes / n_steps, ops=nops / n_steps)]
 
-    # the split entry points on the stress batch's first step, each on
-    # fields it owns: the copies the symbolic superstep makes are timed apart
-    sp = split
-    P = P_K10
+    # the split entry points at P_MAIN on a real symbolic frontier (the
+    # batch before a sweep), consecutive steps in place through one
+    # descriptor, as sym_run launches them
+    sf, env2, corpus2 = sweep_snapshot(dev)
+    b0 = sf.base
+    k = EvmStep.on_card(dev)
+    g = kernels.own_evm_fields(b0)
+    fp, op, run, old_pc = ci.prologue_plain(b0, corpus2)
+    dp = ci.dispatch_plain(fp, env2, corpus2, op, run, old_pc)
 
     def lane_bytes(entry):
         # the per-lane fields an entry point writes; iprof's histogram
         # row counts the one counter a step bumps
-        fs = [getattr(sp["f"], k) for k in kernels.EVM_WRITES[entry]
-              if getattr(sp["f"], k) is not None]
-        return sum(t.element_size() if t.dim() == 1 else 4 for t in fs) * P
+        fs = [getattr(b0, x) for x in kernels.EVM_WRITES[entry] if getattr(b0, x) is not None]
+        return sum(t.element_size() if t.dim() == 1 else 4 for t in fs) * P_MAIN
 
-    runs_b = sp["run"] & ~sp["skip"]
+    split_step(k, g, env2, corpus2)  # fills the descriptor's op/run/old_pc
     calls = {
-        "evm_prologue": (sp["f"], "prologue",
-                         lambda g: kernels.evm_prologue(g, sp["corpus"], own=True),
-                         lambda: ci.prologue_plain(sp["f"], sp["corpus"]),
-                         2 * lane_bytes("prologue") + P * 40, 0),
-        "evm_dispatch": (sp["fp"], "dispatch",
-                         lambda g: kernels.evm_dispatch(g, sp["env"], sp["corpus"], sp["op"],
-                                                        sp["run"], sp["old_pc"], sp["skip"],
-                                                        own=True),
-                         lambda: ci.dispatch_plain(sp["fp"], sp["env"], sp["corpus"], sp["op"],
-                                                   sp["run"], sp["old_pc"], skip=sp["skip"]),
-                         step_bytes(sp["fp"], sp["op"], runs_b),
-                         step_ops(sp["fp"], sp["op"], runs_b)),
-        "evm_epilogue": (sp["dp"], "epilogue",
-                         lambda g: kernels.evm_epilogue(g, sp["op"], sp["run"], sp["old_pc"],
-                                                        own=True),
-                         lambda: ci.epilogue_plain(sp["dp"], sp["op"], sp["run"], sp["old_pc"]),
-                         2 * lane_bytes("epilogue") + P * 20, 0),
+        "evm_prologue": (lambda: kernels.evm_prologue(g, corpus2, False, k),
+                         lambda: kernels.evm_prologue(g, corpus2),
+                         lambda: ci.prologue_plain(b0, corpus2), "prologue",
+                         2 * lane_bytes("prologue") + P_MAIN * 40, 0),
+        "evm_dispatch": (lambda: kernels.evm_dispatch(g, env2, corpus2, k.op, k.run, k.old_pc,
+                                                      None, k),
+                         lambda: kernels.evm_dispatch(g, env2, corpus2, k.op, k.run, k.old_pc),
+                         lambda: ci.dispatch_plain(fp, env2, corpus2, op, run, old_pc),
+                         "dispatch", step_bytes(fp, op, run), step_ops(fp, op, run)),
+        "evm_epilogue": (lambda: kernels.evm_epilogue(g, k.op, k.run, k.old_pc, k),
+                         lambda: kernels.evm_epilogue(g, k.op, k.run, k.old_pc),
+                         lambda: ci.epilogue_plain(dp, op, run, old_pc), "epilogue",
+                         2 * lane_bytes("epilogue") + P_MAIN * 20, 0),
     }
-    for name, (f_in, entry, kern, plain, nb, no) in calls.items():
-        ms = time_owned(kern, f_in, entry, 20)
-        copy_ms = time_ms(lambda: kernels.own_evm_fields(f_in, entry), 20)
-        dev_ms = kernel_device_ms(lambda: kern(kernels.own_evm_fields(f_in, entry)),
-                                  f"{name}_kernel", 20)
-        print(f"[3] {name}: {ms:.4f} ms on owned fields, device {dev_ms:.4f} ms a launch "
-              f"(torch.profiler); the copies of its {entry} fields (own_evm_fields) "
-              f"{copy_ms:.4f} ms", flush=True)
-        out.append(dict(name=name, max_abs_err=err[name], ms=ms,
-                        plain_ms=time_ms(plain, 3), nbytes=nb, ops=no))
+    three = time_ms(lambda: split_step(k, g, env2, corpus2), 50)
+    dev3 = kernels_device_ms(lambda: split_step(k, g, env2, corpus2), K10_SPLIT, 20)
+    bind_us = {}
+    for name, entry, args in (("evm_prologue", "prologue", (None, corpus2)),
+                              ("evm_dispatch", "dispatch", (env2, corpus2, k.op, k.run,
+                                                            k.old_pc)),
+                              ("evm_epilogue", "epilogue", (None, None, k.op, k.run,
+                                                            k.old_pc))):
+        t0 = time.perf_counter()
+        for _ in range(1000):
+            k.bind(entry, g, *args)
+        bind_us[name] = (time.perf_counter() - t0) * 1e3
+    print(f"[3] K10 split at P={P_MAIN} (a real symbolic frontier, in place through one "
+          f"descriptor): the three launches {three:.4f} ms a superstep (CUDA events); device "
+          f"{', '.join(f'{n} {dev3[n]:.4f}' for n in K10_SPLIT)} ms a launch (torch.profiler); "
+          f"bind with nothing changed {', '.join(f'{n} {bind_us[n]:.2f}' for n in K10_SPLIT)} "
+          f"us", flush=True)
+    for name, (kern, old, plain, entry, nb, no) in calls.items():
+        ms = time_ms(kern, 50)
+        old_ms = time_ms(old, 20)
+        copy_ms = time_ms(lambda: kernels.own_evm_fields(g, entry), 20)
+        print(f"[3] {name} at P={P_MAIN}: {ms:.4f} ms a launch through the descriptor "
+              f"(events, bind included), device {dev3[name]:.4f} ms; standalone "
+              f"(copies of its {entry} fields and a full marshal each launch) {old_ms:.4f} ms, "
+              f"the copies alone {copy_ms:.4f} ms", flush=True)
+        out.append(dict(name=name, max_abs_err=err[name], ms=ms, plain_ms=time_ms(plain, 3),
+                        nbytes=nb, ops=no))
+
+    # the descriptor inside a real sym_run: the bind of each launch after
+    # the engine's handlers replaced fields
+    from mythril_tpu_torch.symbolic import SymSpec, sym_run
+
+    binds = {"s": [], "slots": 0}
+    bind = EvmStep.bind
+
+    def timed_bind(self, *a, **kw):
+        # the tensors a bind lets go of are freed after the timed window:
+        # the engine replaced them, and they would be freed anyway
+        n0, old = self.refreshed, list(getattr(self, "_held", ()))
+        t0 = time.perf_counter()
+        bind(self, *a, **kw)
+        binds["s"].append(time.perf_counter() - t0)
+        binds["slots"] += self.refreshed - n0
+        del old
+
+    EvmStep.bind = timed_bind
+    try:
+        sym_run(sf, env2, corpus2, SymSpec(), L, max_steps=16, propagate_every=0)
+        torch.cuda.synchronize()
+    finally:
+        EvmStep.bind = bind
+    n = max(1, len(binds["s"]))
+    print(f"[3] K10 bind inside sym_run at P={P_MAIN} (16 supersteps): {len(binds['s'])} binds, "
+          f"median {sorted(binds['s'])[n // 2] * 1e6:.2f} us, mean {sum(binds['s']) / n * 1e6:.2f} "
+          f"us, {binds['slots'] / n:.1f} slots re-marshaled each", flush=True)
+
+    # block sizes: the split entry points at P_MAIN, the fused one at P_K10,
+    # each size from the same state (a fresh copy of the snapshot; the ERC-20
+    # run from its start)
+    sweep = {}
+    default = kernels.evm_block_threads(K10_THREADS[0])
+    try:
+        for t in K10_THREADS:
+            kernels.evm_block_threads(t)
+            ks, gs = EvmStep.on_card(dev), kernels.own_evm_fields(b0)
+            sweep[t] = kernels_device_ms(lambda: split_step(ks, gs, env2, corpus2), K10_SPLIT,
+                                         20)
+            sweep[t]["evm_superstep"] = kernel_device_ms(lambda: fused_run("bare"),
+                                                         "evm_superstep_kernel")
+    finally:
+        kernels.evm_block_threads(default)
+    print(f"[3] K10 block sizes (device ms a launch; split at P={P_MAIN}, fused at P={P_K10}; "
+          f"the build's default {default}): " + "; ".join(
+              f"{t}: " + ", ".join(f"{n} {v:.4f}" for n, v in sweep[t].items()) for t in sweep),
+          flush=True)
+
+    # the stress dispatch's device time by opcode class (each class's lanes
+    # alone, the others under skip), on copies each launch
+    fp, op, run, old_pc = ci.prologue_plain(f, corpus)
+    cls = ci.Tables.on(dev).CLASS[op.long()]
+    per = {"all": (int(run.sum()), kernel_device_ms(
+        lambda: kernels.evm_dispatch(fp, env, corpus, op, run, old_pc), "evm_dispatch_kernel",
+        5))}
+    for c in range(ci.N_CLASSES):
+        lanes = run & (cls == c)
+        if bool(lanes.any()):
+            per[CLASS_NAMES[c]] = (int(lanes.sum()), kernel_device_ms(
+                lambda: kernels.evm_dispatch(fp, env, corpus, op, run, old_pc, ~lanes),
+                "evm_dispatch_kernel", 5))
+    print(f"[3] stress dispatch at P={P_K10} by class (running lanes, device ms a launch): "
+          + "; ".join(f"{n} {c} {ms:.4f}" for n, (c, ms) in per.items()), flush=True)
+
     for o in out:
         o.update(source=K10_SOURCE, replaces=K10_REPLACES[o["name"]])
     return out
 
 
+CLASS_NAMES = ("STACK", "ALU", "MUL", "DIVMOD", "MODARITH", "EXP", "SHA3", "ENV", "COPY", "MEM",
+               "STORAGE", "JUMP", "HALT", "LOG", "CALL", "CREATE")
+
+
 def run_concrete(dev) -> dict:
-    """Phase 10: the concrete path. ``run`` (one fused K10 launch and one
-    host read per superstep) on the ERC-20 transfer workload at P_K10
-    lanes, default limits, 256 steps: every lane halts without error or
-    revert after the step count the reference EVM gives it
-    (tests/fixtures/torch_port/erc20_transfer_steps.json), and the
-    frontier equals the plain ``run_plain``'s on the card."""
+    """Phase 10: the concrete path. ``run`` (one fused K10 launch a
+    superstep, in place on fields copied once, the device's count of
+    running lanes read every ``RUN_READ_EVERY`` launches) on the ERC-20
+    transfer workload at P_K10 lanes, default limits, 256 steps: every
+    lane halts without error or revert after the step count the reference
+    EVM gives it (tests/fixtures/torch_port/erc20_transfer_steps.json), the
+    frontier equals the plain ``run_plain``'s on the card, its input is
+    left as it was, the fields were copied once, and the host read the
+    device at most 1/RUN_READ_EVERY + 0.02 times a launch. Then five more
+    runs for the time."""
     import torch
+    from mythril_tpu_torch import kernels
     from mythril_tpu_torch.config import DEFAULT_LIMITS
     from mythril_tpu_torch.core import interpreter as ci
     from mythril_tpu_torch.workloads import erc20_transfer_workload
@@ -1470,12 +1669,14 @@ def run_concrete(dev) -> dict:
     if pin["P"] != P_K10:
         fail(f"erc20_transfer_steps.json pins {pin['P']} lanes, not {P_K10}")
     _, f, env, corpus = erc20_transfer_workload(P_K10, DEFAULT_LIMITS, device=dev)
+    before = {k: v.clone() for k, v in vars(f).items() if isinstance(v, torch.Tensor)}
     torch.cuda.synchronize()
-    syncs0 = ci.HOST_SYNCS["count"]
+    syncs0, own0 = ci.HOST_SYNCS["count"], kernels.own_evm_fields.calls
     t0 = time.monotonic()
     end, counts = counted(lambda: ci.run(f, env, corpus, max_steps=pin["max_steps"]))
     wall = time.monotonic() - t0
     n_syncs = ci.HOST_SYNCS["count"] - syncs0
+    copies = kernels.own_evm_fields.calls - own0
     supersteps = counts["evm_superstep"]
     if not (bool(end.halted.all()) and not bool(end.error.any())
             and not bool(end.reverted.any())):
@@ -1489,12 +1690,32 @@ def run_concrete(dev) -> dict:
     bad = {k: e for k, e in frontier_errs(end, plain).items() if e != 0}
     if bad:
         fail(f"concrete run: the frontier differs from run_plain's: {bad}")
+    changed = [k for k, v in before.items() if not torch.equal(v, getattr(f, k))]
+    if changed:
+        fail(f"concrete run: its input changed: {changed}")
+    if copies != 1:
+        fail(f"concrete run: own_evm_fields ran {copies} times, not once")
+    if n_syncs / supersteps > 1 / ci.RUN_READ_EVERY + 0.02:
+        fail(f"concrete run: {n_syncs} host reads for {supersteps} launches")
+    walls = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t1 = time.monotonic()
+        ci.run(f, env, corpus, max_steps=pin["max_steps"])
+        torch.cuda.synchronize()
+        walls.append(time.monotonic() - t1)
+    med = sorted(walls)[len(walls) // 2]
     lane_steps = int(end.n_steps.sum())
-    stats = {"lanes": P_K10, "supersteps": supersteps, "wall_s": wall, "lane_steps": lane_steps,
-             "lane_steps_per_s": lane_steps / wall, "host_syncs": n_syncs,
-             "host_syncs_per_superstep": n_syncs / supersteps, "other_launches": others}
+    stats = {"lanes": P_K10, "steps": pin["n_steps"], "launches": supersteps,
+             "read_every": ci.RUN_READ_EVERY, "first_wall_s": wall, "walls_s": walls,
+             "wall_s": med, "ms_per_step": med * 1e3 / pin["n_steps"],
+             "ms_per_launch": med * 1e3 / supersteps, "lane_steps": lane_steps,
+             "lane_steps_per_s": lane_steps / med, "host_syncs": n_syncs,
+             "host_syncs_per_superstep": n_syncs / supersteps, "field_copies": copies,
+             "other_launches": others}
     print(f"[10] concrete run (ERC-20 transfer): every lane halted, step counts equal the "
-          f"reference EVM's, frontier equals run_plain's; {json.dumps(stats)}", flush=True)
+          f"reference EVM's, frontier equals run_plain's, input unchanged; "
+          f"{json.dumps(stats)}", flush=True)
     return counts
 
 
@@ -1563,6 +1784,59 @@ def main() -> int:
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))
     return 0
+
+
+def tensor_leaves(x, prefix=""):
+    """Every tensor of a frontier (its base's too) by field path."""
+    import torch
+
+    out = {}
+    for fl in dataclasses.fields(x):
+        v = getattr(x, fl.name)
+        if dataclasses.is_dataclass(v):
+            out.update(tensor_leaves(v, f"{prefix}{fl.name}."))
+        elif isinstance(v, torch.Tensor):
+            out[prefix + fl.name] = v
+    return out
+
+
+@contextlib.contextmanager
+def held_inputs(what):
+    """The held-input check around the wrapper's ``sym_run``: the frontier
+    passed to each call (each chunk of the wrapper's loop) is copied to the
+    host before the call, and after it the tensors the caller still holds
+    must equal that copy, field for field. Yields counts: calls, fields
+    held, and (after the block) the field copies ``own_evm_fields`` made,
+    one per call."""
+    import torch
+    from mythril_tpu_torch import kernels
+    from mythril_tpu_torch.analysis import symbolic as wrapper
+
+    inner = wrapper.sym_run
+    stats = {"calls": 0, "fields": 0}
+
+    def checked(sf, *a, **kw):
+        saved = {k: t.cpu() for k, t in tensor_leaves(sf).items()}
+        out = inner(sf, *a, **kw)
+        changed = [k for k, t in tensor_leaves(sf).items() if not torch.equal(t.cpu(), saved[k])]
+        if changed:
+            fail(f"{what}: sym_run changed the frontier its caller holds: {changed}")
+        stats["calls"] += 1
+        stats["fields"] = len(saved)
+        return out
+
+    wrapper.sym_run = checked
+    own0 = kernels.own_evm_fields.calls
+    try:
+        yield stats
+    finally:
+        wrapper.sym_run = inner
+        stats["field_copies"] = kernels.own_evm_fields.calls - own0
+    if stats["calls"] <= 0 or stats["field_copies"] != stats["calls"]:
+        fail(f"{what}: {stats['field_copies']} copies of K10's fields for {stats['calls']} "
+             "sym_run calls (one each, none inside the superstep loop)")
+    print(f"[*] {what}: held-input check passed over {stats['calls']} sym_run calls "
+          f"({stats['fields']} fields each); K10's fields copied once per call", flush=True)
 
 
 def counted(run):
@@ -1760,11 +2034,23 @@ def run_paths(dev, card) -> dict:
     for k in K10_SYM + ("tape_append",):
         if batch_launches[k] <= 0:
             fail(f"kernel {k} was not launched in the batch")
+    if {batch_launches[k] for k in K10_SYM} != {stats["supersteps"]}:
+        fail(f"batch: K10's split launches {[batch_launches[k] for k in K10_SYM]} are not one "
+             f"each per superstep ({stats['supersteps']})")
     want20 = {(d["swc-id"], d["address"]) for d in json.load(open(os.path.join(
         ROOT, "tests", "fixtures", "torch_port", "erc20full_default.json")))["issues"]}
     got = {(i.swc_id, i.address) for i in report.issues if i.contract.startswith("erc20")}
     if got != want20:
         fail(f"batch: erc20 issues {got} != {want20}")
+    # the same batch again under the held-input check (not timed)
+    with held_inputs("batch"):
+        sym_h = SymExecWrapper(codes, contract_names=names, limits=DEFAULT_LIMITS,
+                               lanes_per_contract=64, max_steps=512, transaction_count=2,
+                               device=dev)
+    got_h = {(i.swc_id, i.address) for i in fire_lasers(sym_h).issues
+             if i.contract.startswith("erc20")}
+    if got_h != want20 or len(sym_h.sf.base.pc) != stats["lanes"]:
+        fail(f"batch under the held-input check: erc20 issues {got_h} != {want20}")
     for k, n in run_campaign(dev, card).items():
         launches[k] += n
     for k, n in run_policies(dev).items():
@@ -1851,7 +2137,8 @@ def run_campaign(dev, card) -> dict:
         print(f"[11] campaign {what}: equals the JAX pin ({pin}); {json.dumps(stats)}; "
               f"launches {counts}; card {card}", flush=True)
 
-    one("unpipelined", ["--no-pipeline", "--init-timeout", "300"], "plain")
+    with held_inputs("campaign unpipelined"):
+        one("unpipelined", ["--no-pipeline", "--init-timeout", "300"], "plain")
     one("pipelined", [], "plain")
 
     ckpt = tempfile.mkdtemp(prefix="chip_smoke_campaign_ckpt_")

@@ -2,8 +2,9 @@
 
 Counterpart of the JAX package's ``core/interpreter.py``. A frontier on a
 CUDA device goes through kernel K10 (``kernels/csrc/evm_step.cu``): one
-thread per lane runs the lane's own step, and :func:`run` makes one fused
-launch and one host read per superstep. A frontier on the CPU goes
+thread per lane runs the lane's own step, in place on fields the caller
+owns, and :func:`run` makes one fused launch per superstep and one host
+read every ``RUN_READ_EVERY``. A frontier on the CPU goes
 through the plain versions here (``prologue_plain``, ``dispatch_plain``,
 ``epilogue_plain``, ``superstep_plain``, ``run_plain``), which
 ``chip_smoke.py`` also calls by name on the card to hold K10 to them.
@@ -20,7 +21,7 @@ run.
 TPU-only forms of the JAX code are dropped, their results kept: slot
 writes use per-lane indexing (``_use_scatter``'s CPU branch), handlers run
 directly instead of through ``narrow_cond``, and the ``while_loop`` of
-:func:`run` is a Python loop with one host check per step.
+:func:`run_plain` is a Python loop with one host check per step.
 
 CALL/CREATE are stubbed at this layer (success push), as in the JAX code;
 the symbolic engine refuses them (see ``symbolic/engine.py``).
@@ -817,47 +818,69 @@ def run_plain(f: Frontier, env: Env, corpus: Corpus, max_steps: int = 256) -> Fr
 
 # ---------------------------------------------------------------------------
 # Entry points: K10 for a frontier on a CUDA device, the plain versions for
-# one on the CPU. The K10 wrappers write into fresh copies of the fields a
-# step changes, so ``old_pc`` (the input's ``pc``) and any frontier a
-# caller still holds stay as they were.
+# one on the CPU. K10 writes in place, on fields its caller owns
+# (``kernels.EVM_WRITES``): a loop owns once — :func:`run` here and
+# ``sym_run`` copy the fields K10 writes on entry and hand every launch
+# their descriptor ``k10`` (``kernels.EvmStep``) — and a call without a
+# descriptor copies the fields it writes first. So a tensor a caller still
+# holds is never changed. Given a descriptor, these run K10 whatever the
+# device (its library decides: the nvcc build, or the CPU tests' host build).
 # ---------------------------------------------------------------------------
 
+#: :func:`run` reads the count of running lanes once every this many
+#: supersteps. A read drains the launch queue and costs about as much as
+#: a superstep; the launches after the last lane stops (at most this many
+#: less one) change nothing and cost a few microseconds each. Sixteen
+#: balances the two near sqrt(2 x supersteps x read/launch) for the ~60
+#: supersteps of the ERC-20 transfer run (chip_smoke.py phase 10).
+RUN_READ_EVERY = 16
 
-def prologue(f: Frontier, corpus: Corpus, berlin: bool = False):
+
+def k10_for(f: Frontier, berlin: bool = False):
+    """K10's launch descriptor for a loop over ``f`` on the card; None on
+    the CPU, where the plain versions run."""
+    if not f.pc.is_cuda:
+        return None
+    from ..kernels import EvmStep
+
+    return EvmStep.on_card(f.pc.device, berlin)
+
+
+def prologue(f: Frontier, corpus: Corpus, berlin: bool = False, k10=None):
     """Fetch + validate the next instruction for every running lane.
-    Returns ``(f, op, run, old_pc)``."""
-    if f.pc.is_cuda:
+    Returns ``(f, op, run, old_pc)``; ``old_pc`` is the pre-step pc
+    (with K10 a copy in the descriptor's buffer)."""
+    if k10 is not None or f.pc.is_cuda:
         from ..kernels import evm_prologue
 
-        out, op, run = evm_prologue(f, corpus, berlin)
-        return out, op, run, f.pc
+        return evm_prologue(f, corpus, berlin, k10)
     return prologue_plain(f, corpus, berlin)
 
 
 def dispatch(f: Frontier, env: Env, corpus: Corpus, op, run, old_pc,
-             skip=None, present=None) -> Frontier:
+             skip=None, present=None, k10=None) -> Frontier:
     """Each running lane not under ``skip`` executes its instruction.
     ``present`` (the host list of class-present flags) serves the plain
     version only; K10 needs none."""
-    if f.pc.is_cuda:
+    if k10 is not None or f.pc.is_cuda:
         from ..kernels import evm_dispatch
 
-        return evm_dispatch(f, env, corpus, op, run, old_pc, skip)
+        return evm_dispatch(f, env, corpus, op, run, old_pc, skip, k10)
     return dispatch_plain(f, env, corpus, op, run, old_pc, skip, present)
 
 
-def epilogue(f: Frontier, op, run, old_pc) -> Frontier:
+def epilogue(f: Frontier, op, run, old_pc, k10=None) -> Frontier:
     """Default pc advance + out-of-gas trap after the handlers ran."""
-    if f.pc.is_cuda:
+    if k10 is not None or f.pc.is_cuda:
         from ..kernels import evm_epilogue
 
-        return evm_epilogue(f, op, run, old_pc)
+        return evm_epilogue(f, op, run, old_pc, k10)
     return epilogue_plain(f, op, run, old_pc)
 
 
 def superstep(f: Frontier, env: Env, corpus: Corpus) -> Frontier:
     """Advance every running lane by one instruction (one fused K10
-    launch on the card)."""
+    launch on the card, on copies of the fields it writes)."""
     if f.pc.is_cuda:
         from ..kernels import evm_superstep
 
@@ -866,16 +889,24 @@ def superstep(f: Frontier, env: Env, corpus: Corpus) -> Frontier:
 
 
 def run(f: Frontier, env: Env, corpus: Corpus, max_steps: int = 256) -> Frontier:
-    """Run until every lane halts/errors or max_steps supersteps elapse.
-    On the card: the fields a step writes are copied once, then each
-    superstep is one in-place K10 launch after one host read."""
-    if not f.pc.is_cuda:
+    """Run until every lane halts/errors or max_steps supersteps elapse;
+    the input is never changed. On the card: the fields a step writes are
+    copied once and the descriptor built once, then each superstep is one
+    in-place fused K10 launch, and the device's count of running lanes is
+    read once every ``RUN_READ_EVERY`` launches (and once before the
+    first, so that a frontier with nothing to run is returned as it was).
+    The launches after the last lane stops change nothing."""
+    k10 = k10_for(f)
+    if k10 is None:
         return run_plain(f, env, corpus, max_steps)
-    from ..kernels import evm_superstep, own_evm_fields
+    from ..kernels import own_evm_fields
 
+    if max_steps <= 0 or not host_bool(torch.any(f.running)):
+        return f
     f = own_evm_fields(f)
-    for _ in range(max_steps):
-        if not host_bool(torch.any(f.running)):
+    k10.bind("superstep", f, env, corpus)
+    for i in range(1, max_steps + 1):
+        k10.launch("superstep")
+        if i % RUN_READ_EVERY == 0 and i < max_steps and not host_bool(k10.n_running[0]):
             break
-        evm_superstep(f, env, corpus, own=True)
     return f

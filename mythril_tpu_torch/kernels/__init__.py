@@ -31,11 +31,12 @@ the flags, the nvcc version); a later process whose stamp matches loads
 them without running nvcc.
 
 Each wrapper checks device, dtype, shape and contiguity, allocates its
-outputs with ``torch.empty`` (K10: copies of the frontier fields it
-writes), launches on PyTorch's current stream, raises
+outputs with ``torch.empty``, launches on PyTorch's current stream, raises
 if the launch returned a CUDA error, and adds one to its ``launches``
-counter. The plain PyTorch versions live beside their callers
-(``ops/u256.py``, ``ops/keccak.py``, ``ops/sha256.py``,
+counter. K10 works in place on frontier fields its caller owns, through
+a launch descriptor (:class:`EvmStep`) that a loop builds once and that
+re-marshals only the tensors that changed since its last launch. The
+plain PyTorch versions live beside their callers (``ops/u256.py``, ``ops/keccak.py``, ``ops/sha256.py``,
 ``symbolic/engine.py``, ``symbolic/propagate.py``,
 ``core/interpreter.py``); those callers route a CPU tensor to the plain
 version and a CUDA tensor here. K1, K8 and K9 have no such caller: their
@@ -514,7 +515,9 @@ def fork_plan(active, fork_req, con_len, fork_dest, contract_id, pc, sp, dropped
 # csrc/evm_step.cuh: (name, where, dtype, shape). ``where`` is the
 # frontier ("f", the kernel's ``is_static`` is the field ``static``), the
 # env ("env"), the corpus ("corpus"), the opcode tables ("tab", the
-# ``Tables`` attribute) or the step itself ("step"). Shapes name the dims.
+# ``Tables`` attribute) or the step itself ("step": the prologue's op,
+# run and old_pc, dispatch's skip mask, the fused entry point's count of
+# lanes still running). Shapes name the dims.
 _B, _U8, _I32, _I64 = torch.bool, torch.uint8, torch.int32, torch.int64
 EVM_FIELDS = (
     ("active", "f", _B, ("P",)), ("halted", "f", _B, ("P",)), ("error", "f", _B, ("P",)),
@@ -553,11 +556,16 @@ EVM_FIELDS = (
     ("GAS_MAX", "tab", _I64, (256,)), ("EMPTY_KECCAK", "tab", _I64, (8,)),
     ("op", "step", _I32, ("P",)), ("run", "step", _B, ("P",)),
     ("old_pc", "step", _I32, ("P",)), ("skip", "step", _B, ("P",)),
+    ("n_running", "step", _I32, (1,)),
 )
 EVM_DIMS = ("P", "S", "M", "CD", "RD", "K", "A", "LS", "IC", "MC", "C")
-# the frontier fields each entry point writes; a wrapper writes into
-# clones of them (so a tensor a caller still holds is never changed)
-# unless the caller owns the frontier (``own=True``, as ``run`` does)
+# The frontier fields each entry point writes, in place. Ownership rule:
+# K10 writes only fields its caller owns. A loop owns once — ``run`` and
+# ``sym_run`` copy these fields on entry (``own_evm_fields``) and every
+# superstep of the call then runs in place on them — and a standalone
+# call (a wrapper given no descriptor, ``superstep``, ``sym_superstep``)
+# copies the fields it writes first. So a tensor a caller holds is never
+# changed.
 EVM_WRITES = {
     "prologue": ("error", "err_code", "gas_min", "gas_max"),
     "dispatch": ("stack", "sp", "gas_min", "gas_max", "mem_words", "error", "err_code",
@@ -569,123 +577,282 @@ EVM_WRITES = {
 }
 EVM_WRITES["superstep"] = tuple(dict.fromkeys(
     EVM_WRITES["prologue"] + EVM_WRITES["dispatch"] + EVM_WRITES["epilogue"]))
-EVM_ENTRIES = ("evm_prologue", "evm_dispatch", "evm_epilogue", "evm_superstep")
+EVM_ENTRIES = ("prologue", "dispatch", "epilogue", "superstep")
 
 
 def bind_evm_step(lib):
     """Argument and result types of K10's entry points on a loaded library
     (the nvcc build here; the CPU tests' host build of the same body)."""
     for name in EVM_ENTRIES:
-        fn = getattr(lib, name)
+        fn = getattr(lib, f"evm_{name}")
         fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
         fn.restype = ctypes.c_int
+    if hasattr(lib, "evm_block_threads"):
+        lib.evm_block_threads.argtypes = [ctypes.c_int]
+        lib.evm_block_threads.restype = ctypes.c_int
 
 
 def own_evm_fields(f, entry: str = "superstep"):
-    """``f`` with fresh, contiguous copies of the fields ``entry`` writes."""
+    """``f`` with fresh, contiguous copies of the fields ``entry`` writes.
+    ``own_evm_fields.calls`` counts the calls (a loop makes one)."""
+    own_evm_fields.calls += 1
     return f.replace(**{k: getattr(f, k).clone(memory_format=torch.contiguous_format)
                         for k in EVM_WRITES[entry] if getattr(f, k) is not None})
 
 
-def evm_step_call(entry: str, fn, stream: int, f, env, corpus, *, berlin=False,
-                  op=None, run=None, old_pc=None, skip=None, own=False):
-    """Marshal one K10 step for ``fn`` (a library's entry point ``entry``,
-    one of prologue/dispatch/epilogue/superstep) and call it. Checks the
-    dtype, shape, device and contiguity of every tensor it passes; the
-    frontier comes back with the fields ``entry`` wrote (in clones unless
-    ``own``). -> (frontier, op, run)."""
-    from ..core.interpreter import Tables
+own_evm_fields.calls = 0
 
-    dev = f.pc.device
-    if not own:
-        f = own_evm_fields(f, entry)
-    P = f.n_lanes
-    if entry == "prologue":
-        op = torch.empty(P, dtype=_I32, device=dev)
-        run = torch.empty(P, dtype=_B, device=dev)
-    tb = Tables.on(dev)
-    tabs = {name: getattr(tb, name) for name, where, _, _ in EVM_FIELDS if where == "tab"}
-    if berlin:
-        tabs.update(GAS_MIN=tb.GAS_MIN_BERLIN, GAS_MAX=tb.GAS_MAX_BERLIN)
-    srcs = {"f": f, "env": env, "corpus": corpus}
-    dims = dict(P=P, S=f.stack.shape[1], M=f.memory.shape[1], CD=f.calldata.shape[1],
-                RD=f.retval.shape[1], K=f.st_used.shape[1], A=f.acct_used.shape[1],
-                LS=f.log_pc.shape[1], IC=f.init_code.shape[1],
-                MC=corpus.code.shape[1] if corpus is not None else 0,
-                C=corpus.code.shape[0] if corpus is not None else 0)
-    step = {"op": op, "run": run, "old_pc": old_pc, "skip": skip}
-    optional = {"op_hist", "skip", "old_pc"} if entry == "prologue" else {"op_hist", "skip"}
-    if entry == "superstep":
-        optional |= {"op", "run", "old_pc"}
-    # the prologue reads no env, the epilogue neither env nor corpus
-    unread = {"prologue": ("env",), "epilogue": ("env", "corpus")}.get(entry, ())
-    ptrs = []
-    for name, where, dtype, shape in EVM_FIELDS:
-        if where == "tab":
-            t = tabs[name]
-        elif where == "step":
-            t = step[name]
-        else:
-            src = srcs[where]
-            t = None if src is None else getattr(src, name)
+_SLOT = {name: i for i, (name, *_) in enumerate(EVM_FIELDS)}
+# the slots some entry point writes: one of them may share memory with no
+# other slot (the aliasing check of EvmStep)
+_WRITTEN = frozenset([_SLOT[k] for k in EVM_WRITES["superstep"]]
+                     + [_SLOT[k] for k in ("op", "run", "old_pc", "n_running")])
+# the slots whose shapes give the dims (EvmStep._layout)
+_DIM_SLOTS = frozenset(_SLOT[k] for k in ("pc", "stack", "memory", "calldata", "retval",
+                                          "st_used", "acct_used", "log_pc", "init_code",
+                                          "code"))
+# what each entry point reads of env and corpus
+_READS = {"prologue": ("corpus",), "dispatch": ("env", "corpus"), "epilogue": (),
+          "superstep": ("env", "corpus")}
+
+
+class EvmStep:
+    """K10's launch descriptor: the pointer and dims arrays its entry
+    points take, built once per frontier layout (the dims of
+    ``EVM_DIMS``) and kept up to date from launch to launch.
+
+    :meth:`bind` compares each tensor it is given with the one its slot
+    holds, by object; only the slots whose tensor changed are checked
+    (device, dtype, shape, contiguity: a bad tensor raises there) and
+    re-marshaled, and its byte range is checked against every other
+    slot's where either of the two is written: K10 writes in place, so a
+    written field that shared memory with another would change it. An
+    overlap raises, naming both fields. The opcode tables are marshaled
+    once. :meth:`launch` is the bare C call.
+
+    The descriptor owns the step's buffers: the prologue writes ``op``,
+    ``run`` and ``old_pc`` (a copy of the pre-step pc) here, and the fused
+    entry point ``n_running``, the count of lanes still running after the
+    step. The next prologue or fused launch overwrites them. It launches on
+    ``stream`` and holds the tensors it points at until they are
+    replaced."""
+
+    def __init__(self, lib, stream: int, device, berlin: bool = False):
+        from ..core.interpreter import Tables
+
+        dev = torch.device(device)
+        if dev.type == "cuda" and dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+        self.stream, self.device, self.berlin = stream, dev, berlin
+        self._fns = {e: getattr(lib, f"evm_{e}") for e in EVM_ENTRIES}
+        n = len(EVM_FIELDS)
+        self._ptrs = (ctypes.c_uint64 * n)()
+        self._c_ptrs = ctypes.cast(self._ptrs, ctypes.c_void_p)
+        self._c_dims = (ctypes.c_int * len(EVM_DIMS))()
+        self._c_dims_p = ctypes.cast(self._c_dims, ctypes.c_void_p)
+        self._dims = None
+        self._groups = {w: [(i, name) for i, (name, where, _, _) in enumerate(EVM_FIELDS)
+                            if where == w] for w in ("f", "env", "corpus")}
+        tb = Tables.on(self.device)
+        tabs = {name: getattr(tb, name) for name, where, _, _ in EVM_FIELDS if where == "tab"}
+        if berlin:
+            tabs.update(GAS_MIN=tb.GAS_MIN_BERLIN, GAS_MAX=tb.GAS_MAX_BERLIN)
+        self._tabs = [(_SLOT[k], t) for k, t in tabs.items()]
+        self.op = self.run = self.old_pc = self.n_running = None
+        #: slots checked and re-marshaled so far
+        self.refreshed = 0
+
+    @classmethod
+    def on_card(cls, device, berlin: bool = False) -> "EvmStep":
+        """A descriptor for the nvcc build on ``device``'s current stream."""
+        dev = torch.device(device)
+        if dev.type != "cuda":
+            raise ValueError(f"K10: expected a CUDA tensor, got one on {dev}")
+        return cls(_lib("evm_step"), _stream(dev), dev, berlin)
+
+    def _layout(self, f, corpus) -> bool:
+        """Take the dims of ``f`` (and ``corpus``, when given); on a new
+        layout forget every slot and allocate the step's buffers."""
+        dims = dict(P=f.pc.shape[0], S=f.stack.shape[1], M=f.memory.shape[1],
+                    CD=f.calldata.shape[1], RD=f.retval.shape[1], K=f.st_used.shape[1],
+                    A=f.acct_used.shape[1], LS=f.log_pc.shape[1], IC=f.init_code.shape[1],
+                    MC=0, C=0)
+        if corpus is not None:
+            dims.update(MC=corpus.code.shape[1], C=corpus.code.shape[0])
+        elif self._dims is not None:
+            dims.update(MC=self._dims["MC"], C=self._dims["C"])
+        if dims == self._dims:
+            return False
+        n = len(EVM_FIELDS)
+        self._dims = dims
+        self._c_dims[:] = [dims[d] for d in EVM_DIMS]
+        self._ptrs[:] = [0] * n
+        self._shapes = [tuple(dims.get(d, d) for d in shape) for *_, shape in EVM_FIELDS]
+        self._held = [None] * n
+        self._lo = [0] * n
+        self._hi = [0] * n
+        self._on = {}  # storage -> the slots on it
+        self._skey = [0] * n
+        P = dims["P"]
+        self.op = torch.zeros(P, dtype=_I32, device=self.device)
+        self.run = torch.zeros(P, dtype=_B, device=self.device)
+        self.old_pc = torch.zeros(P, dtype=_I32, device=self.device)
+        self.n_running = torch.zeros(1, dtype=_I32, device=self.device)
+        for i, t in self._tabs:
+            self._set(i, t)
+        return True
+
+    def _release(self, i: int):
+        """Take slot ``i`` out of the storage map."""
+        key = self._skey[i]
+        if key:
+            on = self._on[key]
+            on.remove(i)
+            if not on:
+                del self._on[key]
+            self._skey[i] = 0
+
+    def _set(self, i: int, t):
+        """Check ``t`` against slot ``i`` (released) and point the slot at
+        it. Two tensors share memory only through one storage (the
+        allocator's blocks are disjoint), so ``t``'s byte range is checked
+        against the slots on its storage: an overlap where either slot is
+        written raises."""
+        name, _, dtype, _ = EVM_FIELDS[i]
+        self._held[i] = t
+        self.refreshed += 1
         if t is None:
-            if name not in optional and where not in unread:
-                raise ValueError(f"evm_{entry}: {name} is required")
-            ptrs.append(0)
-            continue
-        what = f"evm_{entry} {name}"
-        if t.device != dev:
-            raise ValueError(f"{what}: expected a tensor on {dev}, got {t.device}")
-        _check_layout(t, what, dtype, [dims.get(d, d) for d in shape])
-        ptrs.append(t.data_ptr())
-    c_ptrs = (ctypes.c_uint64 * len(ptrs))(*ptrs)
-    c_dims = (ctypes.c_int * len(EVM_DIMS))(*(dims[d] for d in EVM_DIMS))
-    err = fn(ctypes.cast(c_ptrs, ctypes.c_void_p), ctypes.cast(c_dims, ctypes.c_void_p), stream)
-    _raise_on(err, f"evm_{entry}")
-    return f, op, run
+            if name not in ("op_hist", "skip"):
+                raise ValueError(f"evm_step: {name} is required")
+            self._ptrs[i] = self._lo[i] = self._hi[i] = 0
+            return
+        if t.device != self.device:
+            raise ValueError(f"evm_step {name}: expected a tensor on {self.device}, "
+                             f"got {t.device}")
+        if t.dtype != dtype or t.shape != self._shapes[i] or not t.is_contiguous():
+            _check_layout(t, f"evm_step {name}", dtype, self._shapes[i])
+        p, n = t.data_ptr(), t.nbytes
+        self._ptrs[i] = p
+        self._lo[i], self._hi[i] = p, p + n
+        if not n:
+            return
+        key = t.untyped_storage().data_ptr()
+        for j in self._on.get(key, ()):
+            if (i in _WRITTEN or j in _WRITTEN) and self._lo[j] < p + n and self._hi[j] > p:
+                x, y = (name, EVM_FIELDS[j][0]) if i in _WRITTEN else (EVM_FIELDS[j][0], name)
+                raise ValueError(f"evm_step: {x} and {y} share memory, and K10 writes {x} "
+                                 "in place")
+        self._on.setdefault(key, []).append(i)
+        self._skey[i] = key
+
+    def bind(self, entry: str, f, env=None, corpus=None, op=None, run=None, old_pc=None,
+             skip=None):
+        """Point the descriptor at the tensors of one ``entry`` launch:
+        frontier ``f``, ``env`` and ``corpus`` where ``entry`` reads them
+        (required there, else ignored), and for dispatch and epilogue the
+        prologue's ``op``, ``run`` and ``old_pc`` and dispatch's ``skip``."""
+        reads = _READS[entry]
+        srcs = [(self._groups["f"], f.__dict__)]
+        for w, src in (("env", env), ("corpus", corpus)):
+            if w in reads:
+                if src is None:
+                    raise ValueError(f"evm_{entry}: {w} is required")
+                srcs.append((self._groups[w], src.__dict__))
+
+        def stale():
+            held = self._held
+            return [(i, d[name]) for g, d in srcs for i, name in g if d[name] is not held[i]]
+
+        todo = None if self._dims is None else stale()
+        if todo is None or any(i in _DIM_SLOTS for i, _ in todo):
+            if self._layout(f, corpus if "corpus" in reads else None):
+                todo = stale()
+        if entry in ("prologue", "superstep"):
+            step = {"op": self.op, "run": self.run, "old_pc": self.old_pc}
+        elif op is None or run is None or old_pc is None:
+            raise ValueError(f"evm_{entry}: op, run and old_pc are required")
+        else:
+            step = {"op": op, "run": run, "old_pc": old_pc}
+        if entry == "dispatch":  # the only entry point that reads it
+            step["skip"] = skip
+        step["n_running"] = self.n_running
+        held = self._held
+        todo += [(_SLOT[k], t) for k, t in step.items() if t is not held[_SLOT[k]]]
+        for i, _ in todo:
+            self._release(i)
+        for i, t in todo:
+            self._set(i, t)
+
+    def launch(self, entry: str):
+        """One launch of ``entry`` on what :meth:`bind` last pointed at."""
+        _raise_on(self._fns[entry](self._c_ptrs, self._c_dims_p, self.stream), f"evm_{entry}")
+        _EVM_WRAPPERS[entry].launches += 1
 
 
-def _evm_launch(wrapper, entry, f, env, corpus, **kw):
-    if not f.pc.is_cuda:
-        raise ValueError(f"evm_{entry}: expected a CUDA tensor, got {f.pc.device}")
-    dev = f.pc.device
-    out = evm_step_call(entry, getattr(_lib("evm_step"), f"evm_{entry}"), _stream(dev),
-                        f, env, corpus, **kw)
-    wrapper.launches += 1
-    return out
+def evm_step_call(entry: str, k10: EvmStep, f, env, corpus, *, op=None, run=None,
+                  old_pc=None, skip=None):
+    """The one route from Python to K10's entry points: bind ``k10`` to
+    these tensors and launch ``entry`` (prologue, dispatch, epilogue or
+    superstep), in place on the fields of ``f`` it writes, which the
+    caller owns. -> (frontier, op, run, old_pc): the prologue's are the
+    descriptor's buffers, the others' what was passed."""
+    k10.bind(entry, f, env, corpus, op, run, old_pc, skip)
+    k10.launch(entry)
+    if entry == "prologue":
+        return f, k10.op, k10.run, k10.old_pc
+    return f, op, run, old_pc
+
+
+def _evm_launch(entry, f, env, corpus, k10, berlin=False, **step):
+    """Without a descriptor: a standalone launch on the card, on copies of
+    the fields ``entry`` writes. With one: in place, the caller owning."""
+    if k10 is None:
+        k10 = EvmStep.on_card(f.pc.device, berlin)
+        f = own_evm_fields(f, entry)
+    elif berlin != k10.berlin and entry in ("prologue", "superstep"):
+        raise ValueError(f"evm_{entry}: berlin={berlin} on a descriptor built with "
+                         f"berlin={k10.berlin}")
+    return evm_step_call(entry, k10, f, env, corpus, **step)
 
 
 @_launch_counter
-def evm_prologue(f, corpus, berlin: bool = False, own: bool = False):
-    """K10 prologue -> (frontier, op int32[P], run bool[P]); old_pc is
-    the input's ``pc``, which it leaves as it was. ``own`` as for
-    :func:`evm_superstep`."""
-    return _evm_launch(evm_prologue, "prologue", f, None, corpus, berlin=berlin, own=own)
+def evm_prologue(f, corpus, berlin: bool = False, k10: EvmStep = None):
+    """K10 prologue -> (frontier, op int32[P], run bool[P], old_pc
+    int32[P]); old_pc is a copy of the input's pc. ``k10``: the loop's
+    descriptor, in place (:func:`evm_step_call`); None: on copies."""
+    return _evm_launch("prologue", f, None, corpus, k10, berlin)
 
 
 @_launch_counter
-def evm_dispatch(f, env, corpus, op, run, old_pc, skip=None, own: bool = False):
+def evm_dispatch(f, env, corpus, op, run, old_pc, skip=None, k10: EvmStep = None):
     """K10 dispatch: each running lane not under ``skip`` runs its class
     handler and the stack writeback. -> frontier."""
-    return _evm_launch(evm_dispatch, "dispatch", f, env, corpus, op=op, run=run,
-                       old_pc=old_pc, skip=skip, own=own)[0]
+    return _evm_launch("dispatch", f, env, corpus, k10, op=op, run=run, old_pc=old_pc,
+                       skip=skip)[0]
 
 
 @_launch_counter
-def evm_epilogue(f, op, run, old_pc, own: bool = False):
+def evm_epilogue(f, op, run, old_pc, k10: EvmStep = None):
     """K10 epilogue: pc advance, pc_hold reset, n_steps, iprof, OOG. ->
     frontier."""
-    return _evm_launch(evm_epilogue, "epilogue", f, None, None, op=op, run=run,
-                       old_pc=old_pc, own=own)[0]
+    return _evm_launch("epilogue", f, None, None, k10, op=op, run=run, old_pc=old_pc)[0]
 
 
 @_launch_counter
-def evm_superstep(f, env, corpus, berlin: bool = False, own: bool = False):
-    """K10 fused prologue -> dispatch -> epilogue. ``own``: the caller owns
-    every field the entry point writes (``own_evm_fields``) and it runs in
-    place on them. -> frontier."""
-    return _evm_launch(evm_superstep, "superstep", f, env, corpus, berlin=berlin,
-                       own=own)[0]
+def evm_superstep(f, env, corpus, berlin: bool = False, k10: EvmStep = None):
+    """K10 fused prologue -> dispatch -> epilogue; the descriptor's
+    ``n_running`` then holds the lanes still running. -> frontier."""
+    return _evm_launch("superstep", f, env, corpus, k10, berlin)[0]
+
+
+def evm_block_threads(threads: int) -> int:
+    """Set the threads per block of K10's launches, a multiple of 32 up to
+    1024 (a measurement knob for ``chip_smoke.py``'s sweep; the build's
+    default is in csrc/evm_step.cu). -> the previous value."""
+    old = _lib("evm_step").evm_block_threads(threads)
+    if old < 0:
+        raise ValueError(f"evm_block_threads: {threads} threads per block refused")
+    return old
 
 
 KERNELS = {"divmod_u256": divmod_u256, "keccak256": keccak256,
@@ -694,6 +861,7 @@ KERNELS = {"divmod_u256": divmod_u256, "keccak256": keccak256,
            "mul_u256": mul_u256, "mod_wide_u256": mod_wide_u256, "exp_u256": exp_u256,
            "evm_prologue": evm_prologue, "evm_dispatch": evm_dispatch,
            "evm_epilogue": evm_epilogue, "evm_superstep": evm_superstep}
+_EVM_WRAPPERS = {e: KERNELS[f"evm_{e}"] for e in EVM_ENTRIES}
 
 
 def reset_launch_counts():

@@ -6,10 +6,11 @@
 // (2^64 - 1 saturates to -1), the first trap wins, a vetoed lane still
 // moves its sp, OOB lanes still expand memory to the cap and pay for it.
 //
-// Every field the step changes is read and written through the pointers
-// of `Frame`; the caller points them at buffers this step owns (the
-// wrappers clone what a split entry point changes; `run` owns its
-// frontier), so a tensor someone else still holds is never written.
+// Every field the step changes is read and written in place through the
+// pointers of `Frame`; the caller points them at buffers it owns (a loop
+// copies the written fields once on entry, a standalone call copies them
+// first; kernels/__init__.py `EVM_WRITES`), so a tensor someone else
+// still holds is never written.
 //
 // Limbs ride in int64 carriers in memory and are loaded as uint32_t;
 // offsets and gas are int64 with two's-complement wrap, as in PyTorch.
@@ -39,8 +40,9 @@ constexpr int MAX_HASH_BYTES = 200;
 
 // The pointers of one step, in the order kernels/__init__.py `EVM_FIELDS`
 // passes them: frontier fields, env, corpus, opcode tables, then the
-// step's own op/run/old_pc/skip. Optional ones (op_hist, skip, ...) may
-// be null.
+// step's own op/run/old_pc (the prologue writes them, dispatch and
+// epilogue read them), skip and n_running (the fused entry point's count
+// of lanes still running). Optional ones (op_hist, skip) may be null.
 #define EVM_PTR_FIELDS(X)                                                              \
   X(const uint8_t*, active) X(uint8_t*, halted) X(uint8_t*, error)                     \
   X(int32_t*, err_code) X(uint8_t*, reverted) X(int32_t*, pc)                          \
@@ -68,7 +70,8 @@ constexpr int MAX_HASH_BYTES = 200;
   X(const int32_t*, t_d_sp) X(const uint8_t*, t_pushes) X(const int32_t*, t_push_width) \
   X(const uint8_t*, t_is_valid) X(const int64_t*, t_gas_min) X(const int64_t*, t_gas_max) \
   X(const int64_t*, t_empty_keccak)                                                    \
-  X(int32_t*, op) X(uint8_t*, run) X(const int32_t*, old_pc) X(const uint8_t*, skip)
+  X(int32_t*, op) X(uint8_t*, run) X(int32_t*, old_pc) X(const uint8_t*, skip)          \
+  X(int32_t*, n_running)
 
 // dims, in this order: P, S (stack), M (memory), CD, RD, K (storage
 // slots), A (accounts), LS (log slots), IC (init code), MC (max code),
@@ -736,6 +739,9 @@ __device__ inline void lane_epilogue(const Frame& f, int p, const Step& s) {
   int op = s.op;
   bool adv = s.run && f.t_class[op] != CLS_JUMP && !f.halted[p] && !f.error[p] && !f.pc_hold[p];
   if (adv) f.pc[p] = s.old_pc + 1 + f.t_push_width[op];
+  // every lane, as the plain epilogue: only the symbolic handlers of the
+  // same superstep set the flag, so between supersteps it is 0 on every
+  // lane and a step on a lane that does not run changes nothing
   f.pc_hold[p] = 0;
   if (s.run) {
     f.n_steps[p] += 1;
@@ -761,6 +767,7 @@ __device__ inline void entry_prologue(const Frame& f, int p) {
   Step s = lane_prologue(f, p);
   f.op[p] = s.op;
   f.run[p] = s.run;
+  f.old_pc[p] = s.old_pc;
 }
 
 __device__ inline void entry_dispatch(const Frame& f, int p) {
@@ -771,10 +778,13 @@ __device__ inline void entry_epilogue(const Frame& f, int p) {
   lane_epilogue(f, p, given_step(f, p));
 }
 
-__device__ inline void entry_superstep(const Frame& f, int p) {
+// -> whether the lane still runs after the step (the kernel counts them
+// into n_running)
+__device__ inline bool entry_superstep(const Frame& f, int p) {
   Step s = lane_prologue(f, p);
   lane_dispatch(f, p, s, false);
   lane_epilogue(f, p, s);
+  return f.active[p] && !f.halted[p] && !f.error[p];
 }
 
 }  // namespace evm

@@ -139,8 +139,9 @@ def append_node(sf: SymFrontier, mask, op, a, b, imm=None):
 
     Kernel K3 on a CUDA frontier, :func:`append_node_plain` on a CPU one.
     Both update the tape tensors IN PLACE (the JAX function returned a
-    new tape): callers never keep an older frontier's tape alive across
-    an append, and ``expand_forks`` gathers a fresh tape for its copies."""
+    new tape): ``sym_run`` and ``sym_superstep`` copy the tape once on
+    entry (:func:`own_loop_fields`), so their caller's frontier keeps
+    its tape, and ``expand_forks`` gathers a fresh tape for its copies."""
     P, T = sf.tape_op.shape
     dev = sf.tape_op.device
 
@@ -1793,16 +1794,70 @@ def _berlin_gas_post(sf: SymFrontier, op, run, key_w, key_s) -> SymFrontier:
 _P_STORAGE, _P_JUMP, _P_CALL, _P_CREATE, _P_MISC, _P_PRE, _P_FRAMES, _P_INIT = range(8)
 
 
+# the fields a loop writes in place besides K10's (``kernels.EVM_WRITES``):
+# K3 and its plain version append to the tape, K6 sweeps the domains
+_TAPE_FIELDS = ("tape_op", "tape_a", "tape_b", "tape_imm", "tape_hash", "tape_len")
+_SWEEP_FIELDS = ("iv_lo", "iv_hi", "kb_m", "kb_v", "prop_len")
+
+
+def own_loop_fields(sf: SymFrontier, k10, sweeps: bool = False) -> SymFrontier:
+    """``sf`` with fresh copies of every field a loop over it writes in
+    place, so that the tensors the caller holds stay as they were: the
+    tape (K3 appends in place, and so does its plain version), and on the
+    card (a descriptor ``k10``) the fields K10 writes and, when the loop
+    ``sweeps``, K6's domains."""
+    names = _TAPE_FIELDS + (_SWEEP_FIELDS if sweeps and sf.tape_op.is_cuda else ())
+    sf = sf.replace(**{k: getattr(sf, k).clone() for k in names})
+    if k10 is not None:
+        from ..kernels import own_evm_fields
+
+        sf = sf.replace(base=own_evm_fields(sf.base))
+    return sf
+
+
 def sym_superstep(sf: SymFrontier, env: Env, corpus: Corpus,
                   spec: SymSpec = SymSpec(),
                   limits: LimitsConfig = DEFAULT_LIMITS) -> SymFrontier:
-    """Advance every running lane by one instruction, symbolically."""
+    """Advance every running lane by one instruction, symbolically. The
+    input is never changed: what the step writes in place is copied once
+    first (:func:`own_loop_fields`)."""
+    k10 = ci.k10_for(sf.base, limits.gas_schedule == "berlin")
+    return _sym_superstep(own_loop_fields(sf, k10), env, corpus, spec, limits, k10)
+
+
+def _sym_superstep(sf: SymFrontier, env: Env, corpus: Corpus, spec: SymSpec,
+                   limits: LimitsConfig, k10) -> SymFrontier:
+    """:func:`sym_superstep` on a frontier whose in-place fields the caller
+    owns; ``k10`` is its K10 descriptor (None: the plain versions), and the
+    three K10 launches run in place on ``sf.base``.
+
+    In place, K10's dispatch and epilogue change the tensors of
+    ``sf.base``. The reads of ``f``, ``sf.base`` and ``b0`` between the
+    prologue and the epilogue:
+    - before dispatch: ``ci._peek(f, i)`` gathers into new tensors;
+      ``_berlin_gas_pre`` replaces the gas fields with new tensors;
+      ``b0.active``, ``depth`` and ``init_depth``, which K10 does not
+      write, go into ``in_frame`` and the predicates;
+    - after dispatch: ``_overlay``, the claimed handlers,
+      ``_berlin_gas_post`` and ``fb`` read ``sf.base``, the dispatched
+      frontier, and want its written values, as when dispatch wrote
+      copies;
+    - two pre-write values are read after the write, so they are copies:
+      ``old_pc``, the prologue's copy of the pre-step pc (the plain
+      prologue returns the input's pc, which nothing then writes), which
+      ``_h_sym_jump``, ``_h_sym_call``, ``_h_sym_create``,
+      ``_note_backjump`` and the epilogue read after dispatch (JUMP) and
+      the epilogue move ``pc``; and ``pre_sp``, taken before dispatch
+      moves ``sp``, for ``_overlay``.
+    ``op``, ``run`` and ``old_pc`` live in the descriptor until the next
+    prologue; nothing here keeps them past the epilogue (each use makes a
+    new tensor)."""
     berlin = limits.gas_schedule == "berlin"
-    f, op, run, old_pc = ci.prologue(sf.base, corpus, berlin=berlin)
+    f, op, run, old_pc = ci.prologue(sf.base, corpus, berlin=berlin, k10=k10)
     sf = sf.replace(base=f)
     tb = ci._tab(op)
     cls = tb.CLASS[op.long()]
-    pre_sp = f.sp
+    pre_sp = f.sp.clone()
     pre_stack_sym = sf.stack_sym
     a = [ci._peek(f, i) for i in range(4)]
     s = [_peek_sym(sf, i) for i in range(7)]
@@ -1836,17 +1891,18 @@ def sym_superstep(sf: SymFrontier, env: Env, corpus: Corpus,
     in_frame = b0.active & (b0.depth > 0)
 
     # every cond predicate of this superstep in ONE device->host read; the
-    # concrete dispatch on the card (K10) needs no class-present flags
-    head = [] if op.is_cuda else [ci.class_present(op, run & ~claimed)]
+    # concrete dispatch of K10 needs no class-present flags
+    head = [] if k10 is not None else [ci.class_present(op, run & ~claimed)]
     preds = ci.host_list(torch.cat([
         *head,
         torch.stack([claim_storage.any(), claim_jump.any(), claim_call.any(),
                      claim_create.any(), misc.any(), maybe_pre.any(), in_frame.any(),
                      (in_frame & (b0.init_depth > 0)).any()])]))
-    present, preds = (None, preds) if op.is_cuda else (preds[:ci.N_CLASSES],
-                                                       preds[ci.N_CLASSES:])
+    present, preds = (None, preds) if k10 is not None else (preds[:ci.N_CLASSES],
+                                                            preds[ci.N_CLASSES:])
 
-    f = ci.dispatch(sf.base, env, corpus, op, run, old_pc, skip=claimed, present=present)
+    f = ci.dispatch(sf.base, env, corpus, op, run, old_pc, skip=claimed, present=present,
+                    k10=k10)
     sf = sf.replace(base=f)
     sf = _overlay(sf, env, spec, op, run & ~claimed, cls, pre_sp,
                   pre_stack_sym, a, s, limits)
@@ -1881,7 +1937,7 @@ def sym_superstep(sf: SymFrontier, env: Env, corpus: Corpus,
     fb = sf.base
     back = run & (cls == ci.CLS_JUMP) & ~fb.halted & ~fb.error & (fb.pc <= old_pc)
     sf = _note_backjump(sf, back, old_pc, fb.pc, limits.loop_bound)
-    sf = sf.replace(base=ci.epilogue(sf.base, op, run, old_pc))
+    sf = sf.replace(base=ci.epilogue(sf.base, op, run, old_pc, k10=k10))
     # sub-frames that halted (or failed) this step return to their caller;
     # pop_frames leaves every other lane as it was, so the pre-step
     # "some lane is in a sub-frame" flag gates it exactly
@@ -2409,11 +2465,21 @@ def sym_run(sf: SymFrontier, env: Env, corpus: Corpus,
 
     The JAX ``while_loop``'s ``any(running)`` condition is one host read
     per step (of the running-lane count), the fork-expansion cond one
-    more, and the migration cond one more on its cadence."""
+    more, and the migration cond one more on its cadence.
+
+    The input is never changed. What the loop writes in place is copied
+    once, on entry (:func:`own_loop_fields`: the tape; on the card the
+    fields K10 writes and K6's domains), and K10's descriptor is built
+    once: every superstep of the call then runs K10 in place on those
+    copies (see :func:`_sym_superstep`). The frontier the caller passed —
+    the wrapper's between chunks, a saved checkpoint, a batch the campaign
+    retries — keeps its tensors as they were."""
     from .propagate import kill_infeasible
 
     if propagate_every is None:
         propagate_every = limits.propagate_every
+    k10 = ci.k10_for(sf.base, limits.gas_schedule == "berlin")
+    sf = own_loop_fields(sf, k10, sweeps=0 < propagate_every <= max_steps)
     P = sf.n_lanes
     C, MC = corpus.code.shape
     # row C of the bitmap takes the lanes that write nowhere
@@ -2431,7 +2497,7 @@ def sym_run(sf: SymFrontier, env: Env, corpus: Corpus,
             cid = torch.where(run, b.contract_id, C).long()
             pc = torch.clamp(b.pc, 0, MC - 1).long()
             visited[cid, pc] = True
-        sf = _stage("superstep_s", sym_superstep, sf, env, corpus, spec, limits)
+        sf = _stage("superstep_s", _sym_superstep, sf, env, corpus, spec, limits, k10)
         if ci.host_bool(torch.any(sf.fork_req & sf.base.active)):
             sf = _stage("forks_s", expand_forks, sf, limits.loop_bound, fork_block,
                         fork_policy, defer_starved, visited[:C] if track_coverage else None)

@@ -1,12 +1,16 @@
 """Kernel K10 (``kernels/csrc/evm_step.cu``) before the card: its
 per-lane body (``evm_step.cuh``) is compiled as host C++ with ``g++`` and
-a small shim, driven through ctypes by the same marshaling the CUDA
-wrappers use (``kernels.evm_step_call``), and held field for field to
-the plain ``superstep_plain`` / ``prologue_plain`` / ``dispatch_plain`` /
-``epilogue_plain`` at the test limits: the vmtests batch stepped to
-quiescence, and a seeded random-opcode stress batch (``chip_smoke.py``
-builds both) that reaches every class and trap, under both gas
-schedules, with the instruction profiler on and with a ``skip`` mask.
+a small shim (``torch_port_k10host``), driven through ctypes by the same
+marshaling the CUDA wrappers use (``kernels.EvmStep``,
+``kernels.evm_step_call``, the wrappers' standalone path), and held
+field for field to the plain ``superstep_plain`` / ``prologue_plain`` /
+``dispatch_plain`` / ``epilogue_plain`` at the test limits: the vmtests
+batch stepped to quiescence, and a seeded random-opcode stress batch
+(``chip_smoke.py`` builds both) that reaches every class and trap, under
+both gas schedules, with the instruction profiler on and with a ``skip``
+mask. Each entry point standalone (on copies) and, fused and split, over
+consecutive steps in place on fields owned once through one descriptor,
+with the fused entry point's count of running lanes.
 
 Also the routing rule on the CPU: a CPU frontier goes to the plain
 versions and launches no kernel. Everything runs in one child process
@@ -14,67 +18,19 @@ versions and launches no kernel. Everything runs in one child process
 
 import os
 import shutil
-import subprocess
 
 import pytest
 
 import torch_port_child
+import torch_port_k10host as k10host
 
-CSRC = os.path.join(torch_port_child.ROOT, "mythril_tpu_torch", "kernels", "csrc")
+CSRC = k10host.CSRC
 STRESS_LANES = 384
 STRESS_STEPS = 4
-
-_SHIM_H = """// host build of the CUDA headers' device functions
-#pragma once
-#include <cstdint>
-#define __device__
-#define __global__
-#define __host__
-#define __forceinline__ inline
-#define __constant__
-static inline int __clz(unsigned int x) { return x ? __builtin_clz(x) : 32; }
-"""
-
-# the kernels' entry points as loops over the lanes
-_SHIM_CPP = "#include \"evm_step.cuh\"\n" + "".join(
-    f'extern "C" int evm_{e}(const uint64_t* ptrs, const int* dims, void*) {{\n'
-    f"  evm::Frame f = evm::frame_from(ptrs, dims);\n"
-    f"  for (int p = 0; p < f.P; ++p) evm::entry_{e}(f, p);\n"
-    f"  return 0;\n}}\n"
-    for e in ("prologue", "dispatch", "epilogue", "superstep"))
-
-
-def _build(tmp):
-    """Compile K10's body with g++ into tmp; -> the library's path."""
-    inc = os.path.join(tmp, "shim")
-    os.makedirs(inc, exist_ok=True)
-    with open(os.path.join(inc, "cuda_runtime.h"), "w") as fh:
-        fh.write(_SHIM_H)
-    src = os.path.join(tmp, "evm_step_host.cpp")
-    with open(src, "w") as fh:
-        fh.write(_SHIM_CPP)
-    out = os.path.join(tmp, "libevm_step_host.so")
-    subprocess.run(["g++", "-std=c++17", "-O1", "-shared", "-fPIC", "-Wno-unknown-pragmas",
-                    "-I", inc, "-I", CSRC, "-o", out, src], check=True,
-                   capture_output=True, text=True)
-    return out
-
-
-def _smoke():
-    import importlib.util
-
-    spec = importlib.util.spec_from_file_location(
-        "chip_smoke", os.path.join(torch_port_child.ROOT, "chip_smoke.py"))
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
 
 
 def _compute(path):
     """Child process: every comparison, as lists of differing fields."""
-    import ctypes
-    import tempfile
-
     import numpy as np
     import torch
 
@@ -83,7 +39,7 @@ def _compute(path):
     from mythril_tpu_torch.config import TEST_LIMITS
     from mythril_tpu_torch.core import interpreter as ci
 
-    smoke = _smoke()
+    smoke = k10host.chip_smoke()
     res = {}
 
     def bad(got, want):
@@ -115,63 +71,107 @@ def _compute(path):
         res["lib"] = None
         torch_port_child.dump(res, path)
         return
-    tmp = tempfile.mkdtemp(prefix="evm_step_host_")
-    lib = ctypes.CDLL(_build(tmp))
-    kernels.bind_evm_step(lib)
+    lib = k10host.load(k10host.build())
     res["lib"] = True
+    # the wrappers' standalone path (a descriptor of their own, on copies
+    # of the fields an entry point writes) on the host build
+    kernels.EvmStep.on_card = classmethod(
+        lambda cls, device, berlin=False: k10host.step(lib, device, berlin))
 
-    def host(entry, f, env, corpus, **kw):
-        return kernels.evm_step_call(entry, getattr(lib, f"evm_{entry}"), 0, f, env, corpus,
-                                     **kw)
+    def host(entry, f, env, corpus, berlin=False, **kw):
+        if entry == "prologue":
+            return kernels.evm_prologue(f, corpus, berlin)
+        if entry == "dispatch":
+            return kernels.evm_dispatch(f, env, corpus, **kw), None, None
+        if entry == "epilogue":
+            return kernels.evm_epilogue(f, **kw), None, None
+        return kernels.evm_superstep(f, env, corpus, berlin), None, None
 
-    # the vmtests batch, step by step to quiescence (iprof on)
+    def in_place(k10, g, h, env, corpus):
+        """One split step of ``g`` in place through ``k10`` against the
+        plain step of ``h`` -> (plain frontier, fields differing after
+        prologue, op/run/old_pc equal, after dispatch, after epilogue)."""
+        fp, op, run, old_pc = ci.prologue_plain(h, corpus, k10.berlin)
+        _, kop, krun, kpc = kernels.evm_step_call("prologue", k10, g, None, corpus)
+        out = [bad(g, fp), all(torch.equal(x, y) for x, y in
+                               ((kop, op), (krun, run), (kpc, old_pc)))]
+        dp = ci.dispatch_plain(fp, env, corpus, op, run, old_pc)
+        kernels.evm_step_call("dispatch", k10, g, env, corpus, op=kop, run=krun, old_pc=kpc)
+        out.append(bad(g, dp))
+        ep = ci.epilogue_plain(dp, op, run, old_pc)
+        kernels.evm_step_call("epilogue", k10, g, None, None, op=kop, run=krun, old_pc=kpc)
+        out.append(bad(g, ep))
+        return ep, out
+
+    # the vmtests batch, step by step to quiescence (iprof on): the fused
+    # entry point standalone, and fused and split each in place on fields
+    # owned once (one descriptor each)
     f, env, corpus = smoke.vmtests_batch(TEST_LIMITS)
     f = f.attach_iprof()
-    start = f
-    steps, mism = 0, []
+    kf, ks = k10host.step(lib), k10host.step(lib)
+    gf, gs = kernels.own_evm_fields(f), kernels.own_evm_fields(f)
+    steps, mism, owned = 0, [], []
     while bool(f.running.any()) and steps < 256:
-        want = ci.superstep_plain(f, env, corpus)
+        want, split = in_place(ks, gs, f, env, corpus)
         got = host("superstep", f, env, corpus)[0]
         if bad(got, want):
             mism.append((steps, bad(got, want)))
+        kernels.evm_step_call("superstep", kf, gf, env, corpus)
+        owned.append(dict(step=steps, fused=bad(gf, want), split=split,
+                          count=int(kf.n_running[0]) == int(want.running.sum())))
         f = want
         steps += 1
     res["vmtests"] = dict(steps=steps, quiet=not bool(f.running.any()), mismatches=mism)
     # run's in-place path: own once, then every superstep in place
-    g = kernels.own_evm_fields(start)
-    for _ in range(steps):
-        host("superstep", g, env, corpus, own=True)
-    res["vmtests_in_place"] = bad(g, f)
+    res["vmtests_in_place"] = bad(gf, f)
+    res["vmtests_owned"] = owned
 
-    # the stress batch: fused and split paths, both gas schedules, skip mask
+    # the stress batch: fused and split paths, both gas schedules, skip
+    # mask, each entry point standalone; and the berlin steps again in
+    # place on fields owned once, fused and split (no skip)
     rng = np.random.default_rng(20261017)
     f, env, corpus = smoke.evm_stress_batch(STRESS_LANES, TEST_LIMITS, rng)
-    ops, codes, out = [], [], []
+    kf, ks = k10host.step(lib, berlin=True), k10host.step(lib, berlin=True)
+    gf, gs = kernels.own_evm_fields(f), kernels.own_evm_fields(f)
+    ops, codes, out, owned = [], [], [], []
     for step in range(STRESS_STEPS):
-        # the out-of-place entry points leave their input as it was
+        # the standalone entry points leave their input as it was
         before = f.replace(**{k: v.clone() for k, v in vars(f).items()
                               if isinstance(v, torch.Tensor)})
         for berlin in (False, True):
             fp, op, run, old_pc = ci.prologue_plain(f, corpus, berlin)
-            hp, hop, hrun = host("prologue", f, env, corpus, berlin=berlin)
+            hp, hop, hrun, hpc = host("prologue", f, env, corpus, berlin=berlin)
             skip = torch.as_tensor(rng.random(STRESS_LANES) < 0.3)
             dp = ci.dispatch_plain(fp, env, corpus, op, run, old_pc, skip=skip)
             hd = host("dispatch", fp, env, corpus, op=op, run=run, old_pc=old_pc, skip=skip)[0]
             ep = ci.epilogue_plain(dp, op, run, old_pc)
             he = host("epilogue", dp, None, None, op=op, run=run, old_pc=old_pc)[0]
             # fused: the plain composite (no skip)
-            want = ci.epilogue_plain(ci.dispatch_plain(fp, env, corpus, op, run, old_pc),
-                                     op, run, old_pc)
+            dn = ci.dispatch_plain(fp, env, corpus, op, run, old_pc)
+            want = ci.epilogue_plain(dn, op, run, old_pc)
             got = host("superstep", f, env, corpus, berlin=berlin)[0]
             out.append(dict(step=step, berlin=berlin, prologue=bad(hp, fp),
-                            op=bool(torch.equal(hop, op)), run=bool(torch.equal(hrun, run)),
-                            dispatch=bad(hd, dp), epilogue=bad(he, ep), fused=bad(got, want),
-                            inputs=bad(f, before)))
+                            op=bool(torch.equal(hop, op) and torch.equal(hpc, old_pc)),
+                            run=bool(torch.equal(hrun, run)), dispatch=bad(hd, dp),
+                            epilogue=bad(he, ep), fused=bad(got, want), inputs=bad(f, before)))
             ops.append(op[run].numpy())
             if berlin:
+                _, kop, krun, kpc = kernels.evm_step_call("prologue", ks, gs, None, corpus)
+                split = [bad(gs, fp), all(torch.equal(x, y) for x, y in
+                                          ((kop, op), (krun, run), (kpc, old_pc)))]
+                kernels.evm_step_call("dispatch", ks, gs, env, corpus, op=kop, run=krun,
+                                      old_pc=kpc)
+                split.append(bad(gs, dn))
+                kernels.evm_step_call("epilogue", ks, gs, None, None, op=kop, run=krun,
+                                      old_pc=kpc)
+                split.append(bad(gs, want))
+                kernels.evm_step_call("superstep", kf, gf, env, corpus)
+                owned.append(dict(step=step, fused=bad(gf, want), split=split,
+                                  count=int(kf.n_running[0]) == int(want.running.sum())))
                 f = want
         codes.append(f.err_code.numpy())
     res["stress"] = out
+    res["stress_owned"] = owned
     res["classes"] = sorted({int(c) for c in ci.CLASS_TABLE[np.concatenate(ops)]})
     res["traps"] = sorted({int(c) for c in np.concatenate(codes)})
     torch_port_child.dump(res, path)
@@ -223,3 +223,27 @@ def test_stress_batch_equals_the_plain_versions(host, part):
 def test_stress_batch_reaches_every_class_and_trap(host):
     assert host["classes"] == list(range(16))
     assert {1, 2, 3, 4, 5, 6, 7, 10} <= set(host["traps"])
+
+
+@pytest.mark.parametrize("part", ["fused", "split", "count"])
+def test_vmtests_in_place_on_fields_owned_once_equal_the_plain_steps(host, part):
+    v = host["vmtests_owned"]
+    assert len(v) == host["vmtests"]["steps"] > 1
+    if part == "split":
+        # after the prologue, op/run/old_pc, after dispatch, after the epilogue
+        assert [(o["step"], o["split"]) for o in v
+                if o["split"] != [[], True, [], []]] == []
+    else:
+        assert [o["step"] for o in v if o[part] not in ([], True)] == []
+
+
+@pytest.mark.parametrize("part", ["fused", "split", "count"])
+def test_stress_steps_in_place_on_fields_owned_once_equal_the_plain_steps(host, part):
+    v = host["stress_owned"]
+    assert len(v) == STRESS_STEPS
+    if part == "split":
+        assert [(o["step"], o["split"]) for o in v
+                if o["split"] != [[], True, [], []]] == []
+    else:
+        assert [o["step"] for o in v if o[part] not in ([], True)] == []
+

@@ -1,0 +1,96 @@
+"""K10's per-lane body (``kernels/csrc/evm_step.cuh``) built as host C++.
+
+``g++`` compiles the header with a small shim (``__device__`` and the
+like defined away) into a library whose entry points loop the lanes, as
+``evm_step.cu``'s kernels run one thread per lane; the fused one zeroes
+and counts ``n_running`` as that kernel does with its memset and ballot.
+The CPU tests drive it through the wrappers' own marshaling
+(``kernels.EvmStep``, ``kernels.evm_step_call``) and hold it to the plain
+versions. ``route`` makes the interpreter and the engine take it for a
+CPU frontier, as they take the nvcc build for a CUDA one.
+"""
+
+import ctypes
+import os
+import subprocess
+import tempfile
+
+import torch_port_child
+
+CSRC = os.path.join(torch_port_child.ROOT, "mythril_tpu_torch", "kernels", "csrc")
+
+_SHIM_H = """// host build of the CUDA headers' device functions
+#pragma once
+#include <cstdint>
+#define __device__
+#define __global__
+#define __host__
+#define __forceinline__ inline
+#define __constant__
+static inline int __clz(unsigned int x) { return x ? __builtin_clz(x) : 32; }
+"""
+
+_ENTRY = ('extern "C" int evm_{e}(const uint64_t* ptrs, const int* dims, void*) {{\n'
+          "  evm::Frame f = evm::frame_from(ptrs, dims);\n"
+          "{body}"
+          "  return 0;\n}}\n")
+
+# the kernels' entry points as loops over the lanes
+_SHIM_CPP = "#include \"evm_step.cuh\"\n" + "".join(
+    _ENTRY.format(e=e, body=f"  for (int p = 0; p < f.P; ++p) evm::entry_{e}(f, p);\n")
+    for e in ("prologue", "dispatch", "epilogue")) + _ENTRY.format(
+    e="superstep", body="  *f.n_running = 0;\n"
+                        "  for (int p = 0; p < f.P; ++p)\n"
+                        "    if (evm::entry_superstep(f, p)) ++*f.n_running;\n")
+
+
+def chip_smoke():
+    """``chip_smoke.py`` as a module (its K10 batches and comparisons)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(torch_port_child.ROOT, "chip_smoke.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def build(tmp=None) -> str:
+    """Compile K10's body with g++ into ``tmp``; -> the library's path."""
+    tmp = tmp or tempfile.mkdtemp(prefix="evm_step_host_")
+    inc = os.path.join(tmp, "shim")
+    os.makedirs(inc, exist_ok=True)
+    with open(os.path.join(inc, "cuda_runtime.h"), "w") as fh:
+        fh.write(_SHIM_H)
+    src = os.path.join(tmp, "evm_step_host.cpp")
+    with open(src, "w") as fh:
+        fh.write(_SHIM_CPP)
+    out = os.path.join(tmp, "libevm_step_host.so")
+    subprocess.run(["g++", "-std=c++17", "-O1", "-shared", "-fPIC", "-Wno-unknown-pragmas",
+                    "-I", inc, "-I", CSRC, "-o", out, src], check=True,
+                   capture_output=True, text=True)
+    return out
+
+
+def load(path):
+    from mythril_tpu_torch import kernels
+
+    lib = ctypes.CDLL(path)
+    kernels.bind_evm_step(lib)
+    return lib
+
+
+def step(lib, device="cpu", berlin=False):
+    """A K10 descriptor over the host build."""
+    from mythril_tpu_torch import kernels
+
+    return kernels.EvmStep(lib, 0, device, berlin)
+
+
+def route(lib):
+    """Make ``core.interpreter`` and ``symbolic.engine`` run K10's host
+    build for a CPU frontier (``k10_for``): ``run``, ``sym_run`` and
+    ``sym_superstep`` then take their card path, ownership included."""
+    from mythril_tpu_torch.core import interpreter as ci
+
+    ci.k10_for = lambda f, berlin=False: step(lib, f.pc.device, berlin)
