@@ -3,6 +3,7 @@
     python3 chip_smoke.py            # all phases (needs one CUDA device)
     python3 chip_smoke.py --kernels  # build + kernel checks only
     python3 chip_smoke.py --campaign # build + the campaign phase only
+    python3 chip_smoke.py --parent-k6 SRC ...  # also time another tree's K6
 
 Phases, each fatal on failure:
 
@@ -16,8 +17,17 @@ Phases, each fatal on failure:
    (K1-K4 and K6-K9 at the main path's width, P = 2048 lanes; K5 on 64
    lanes of edge and random operands), seeded random inputs plus edge
    cases; bit-for-bit equality is required, and K4/K5/K8/K9 also against
-   hashlib / Python's ints. K6 on random tapes holding every op and on
-   the frontier of a real batch just before a sweep; K7 for each policy
+   hashlib / Python's ints. K3's group entry point against R sequential
+   plain appends on its edge cases (``group_cases``: the SHA3 chain
+   masked off mid-chain, the binary op's CONST, CONST and node, rows
+   repeating earlier rows of their group, a forged fingerprint
+   collision, random sources, masked-off lanes, overflows mid-group).
+   K6 on random tapes holding every op (self and forward references,
+   clipped ids) and on the frontier of a real batch just before a sweep;
+   with ``--parent-k6 SRC`` also another tree's propagate_sweep.cu (say
+   the parent commit's, unpacked in an ignored directory), built here
+   and timed on the same inputs in turns with this one, and ptxas's
+   register and spill lines for both and for K3; K7 for each policy
    at fork blocks of 64 lanes and of P. K10 (the concrete EVM step)
    against ``superstep_plain`` / ``prologue_plain`` / ``dispatch_plain``
    / ``epilogue_plain`` (whose arithmetic and SHA3 are plain PyTorch on
@@ -29,7 +39,9 @@ Phases, each fatal on failure:
    mask, the fused entry point's count of running lanes, each entry point
    once standalone (its input unchanged), and the ERC-20 transfer run.
    Times each kernel, its plain version and the bound the card's rates
-   put on the same work; K10 also through the wrapper, on the device
+   put on the same work; K3 and K6 also on the device alone (K3 through
+   the loop's tape descriptor, as the engine calls it); K10 also through
+   the wrapper, on the device
    alone, its bind, the standalone copying path, a sweep of block sizes
    and the stress dispatch by opcode class;
 4. goldens: the 20 golden fixtures at the goldens' settings (test
@@ -43,8 +55,10 @@ Phases, each fatal on failure:
    precompile fixture with ``--creation-code`` (SHA-256 and MODEXP in its
    constructor: K4 and K5 must launch there). K10's prologue, dispatch
    and epilogue must launch on every analyze (the concrete MUL, DIV, EXP,
-   MULMOD and SHA3 run inside K10, so K1, K2, K8 and K9 no longer do).
-   Launch counts are zeroed just before each part and read just after;
+   MULMOD and SHA3 run inside K10, so K1, K2, K8 and K9 no longer do),
+   and both of K3's entry points; an erc20full analyze may take at most
+   ``K3_ERC20FULL_MAX`` K3 launches. Launch counts are zeroed just before
+   each part and read just after;
 6. frames at full width through ``SymExecWrapper``: BASELINE config 4
    (caller -> router -> vault, creation tx + 2 message txs, default
    limits, 64 lanes per contract, 512 steps) and the 4-contract
@@ -91,8 +105,9 @@ Phases, each fatal on failure:
    (``halve-lanes,halve-batch``). Each run equals the JAX
    ``CorpusCampaign`` pinned in ``tests/fixtures/torch_port/
    campaign_default.json`` (issues of every contract, paths, quarantine,
-   statuses, ladder events, solver counts) and launches K10, K3, K6 and
-   K7; contracts/s, seconds per batch, host syncs; the unpipelined run
+   statuses, ladder events, solver counts) and launches K10, K3 (both
+   entry points, the count printed), K6 and K7; contracts/s, seconds per
+   batch, host syncs; the unpipelined run
    under the held-input check of phase 7. A second process must reuse
    the kernel build.
 
@@ -808,10 +823,17 @@ def check_k3(dev, rng):
         fail("K3 edge cases (overflow, masked lanes) did not show")
     # timed on one tape: after the first launch every masked row is present,
     # so the timed launches are dedup hits (or overflows) — the bound below
-    # counts the scan those steady-state launches need
+    # counts the scan those steady-state launches need. As the engine's
+    # loop calls it: through a descriptor bound to the tape once
     ids_s, _ = append_node_plain(*tp, *inputs)
     tk = fresh_tape()
-    ms = time_ms(lambda: kernels.tape_append(*tk, *inputs), 50)
+    k3 = kernels.TapeAppend.on_card(dev)
+    ms = time_ms(lambda: kernels.tape_append(*tk, *inputs, k3=k3), 50)
+    standalone_ms = time_ms(lambda: kernels.tape_append(*tk, *inputs), 50)
+    device_ms = kernel_device_ms(lambda: kernels.tape_append(*tk, *inputs, k3=k3),
+                                 "append_kernel", 20)
+    print(f"[3] tape_append: {ms:.4f} ms through the loop's descriptor, {standalone_ms:.4f} "
+          f"ms with a descriptor of its own, {device_ms:.4f} ms on the device", flush=True)
     tp = fresh_tape()
     plain_ms = time_ms(lambda: append_node_plain(*tp, *inputs), 10)
     # bytes: the fingerprints the scan reads up to the first match (or the
@@ -821,6 +843,198 @@ def check_k3(dev, rng):
     scanned = int(torch.where(inputs[4], hit_rows, 0).sum().item()) * 4
     nbytes = scanned + P * (3 * 4 + 64 + 4) * 2 + P * (3 * 4 + 64 + 1 + 4 + 1)
     return dict(name="tape_append", source="mythril_tpu_torch/kernels/csrc/tape_append.cu",
+                replaces="mythril_tpu/symbolic/engine.py:84", max_abs_err=err, ms=ms,
+                plain_ms=plain_ms, nbytes=nbytes, ops=0)
+
+
+def group_tape(dev, rng, P, T):
+    """A random tape for K3's group checks: row 0 the null row, lengths in
+    [14, T - 2), lanes 0 and 1 two rows short of full (a group of fresh
+    rows overflows in its middle). -> [tape_op, tape_a, tape_b, tape_imm,
+    tape_hash, tape_len] on ``dev``."""
+    import torch
+    from mythril_tpu_torch.symbolic.state import tape_row_hash, hash_bits
+
+    op = rng.integers(1, 29, (P, T)).astype(np.int32)
+    a = rng.integers(0, 64, (P, T)).astype(np.int32)
+    b = rng.integers(0, 64, (P, T)).astype(np.int32)
+    imm = np.zeros((P, T, 8), dtype=np.int64)
+    imm[:, :, 0] = rng.integers(0, 4, (P, T))
+    op[:, 0] = a[:, 0] = b[:, 0] = 0
+    imm[:, 0] = 0
+    tlen = rng.integers(14, T - 2, P).astype(np.int32)
+    tlen[:2] = T - 2
+    tape = [torch.as_tensor(x, device=dev) for x in (op, a, b, imm)]
+    return tape + [hash_bits(tape_row_hash(*tape)), torch.as_tensor(tlen, device=dev)]
+
+
+def group_cases(dev, rng, tape):
+    """K3's group edge cases on a tape of :func:`group_tape`: a list of
+    (name, tape, [op, a, b, a_src, b_src, imm, mask]), ``[P, R]`` tensors
+    (imm ``[P, R, 8]``) on ``dev``, each case on a copy of the tape:
+
+    - chain: the engine's SHA3 chain (seed, 8 absorbs on the chain so far,
+      digest), with rows masked off mid-chain (windows shorter than 8
+      words) and lanes with no chain;
+    - binop: the engine's CONST, CONST, node, with unary lanes and zero
+      constants;
+    - repeat: rows that repeat an earlier row of their group, literally
+      and through the same reference, and a row already on the tape;
+    - collision: a live row of some lanes carries the fingerprint of the
+      group's first row with other content (a missed dedup);
+    - random: 16 rows of few distinct values, random masks, sources in and
+      out of [0, r) (an out-of-range source takes the literal).
+
+    In every case lanes 2 and 3 append nothing, and lanes 0 and 1 append
+    their rows, which overflow mid-group unless a row happens to be on
+    the random tape already."""
+    import torch
+    from mythril_tpu_torch.symbolic.ops import SymOp
+    from mythril_tpu_torch.symbolic.state import tape_row_hash, hash_bits
+
+    P, T = tape[0].shape
+    t = lambda x: torch.as_tensor(np.ascontiguousarray(x), device=dev)
+
+    def words(shape, p_zero=0.0):
+        w = rng.integers(0, 1 << 32, shape + (8,), dtype=np.int64)
+        w[rng.random(shape) < p_zero] = 0
+        return w
+
+    def case(name, op, a, b, a_src, b_src, imm, mask, case_tape=None):
+        mask = mask.copy()
+        mask[:2] = True
+        mask[2:4] = False
+        return (name, [x.clone() for x in (case_tape or tape)],
+                [t(op.astype(np.int32)), t(a.astype(np.int32)), t(b.astype(np.int32)),
+                 t(a_src.astype(np.int32)), t(b_src.astype(np.int32)), t(imm), t(mask)])
+
+    rows = lambda vals: np.broadcast_to(np.asarray(vals, np.int32), (P, len(vals)))
+    cases = []
+    # chain
+    R, ncw = 10, 8
+    m_chain = rng.random(P) < 0.85
+    nw = rng.integers(0, ncw + 1, P)
+    m_chain[:2], nw[:2] = True, ncw
+    mask = np.zeros((P, R), bool)
+    mask[:, 0] = mask[:, -1] = m_chain
+    mask[:, 1:-1] = m_chain[:, None] & (np.arange(ncw)[None, :] < nw[:, None])
+    b = np.zeros((P, R), np.int32)
+    b[:, 1:-1] = rng.integers(1, 40, (P, ncw)) * (rng.random((P, ncw)) < 0.5)
+    imm = np.zeros((P, R, 8), np.int64)
+    imm[:, 0, 0] = rng.integers(1, 201, P)
+    imm[:, 0, 1] = rng.integers(0, 32, P)
+    imm[:, 1:-1] = np.where((b[:, 1:-1] == 0)[..., None], words((P, ncw)), 0)
+    cases.append(case("chain", rows([int(SymOp.KECCAK_SEED)] + [int(SymOp.KECCAK_ABS)] * ncw
+                                    + [int(SymOp.KECCAK)]), np.zeros((P, R)), b,
+                      rows([-1] + list(range(ncw + 1))), rows([-1] * R), imm, mask))
+    # binop
+    node = rng.choice([3, 4, 5, 6, 12, 16, 17, 18, 21], P)
+    unary = np.isin(node, [17, 21])
+    s0 = rng.integers(1, 40, P) * (rng.random(P) < 0.5)
+    s1 = rng.integers(1, 40, P) * (rng.random(P) < 0.5)
+    a0, a1 = words((P,), 0.3), words((P,), 0.3)
+    m_node = rng.random(P) < 0.85
+    m_node[:2] = True
+    need_a = m_node & (s0 == 0) & a0.any(axis=1)
+    need_b = m_node & ~unary & (s1 == 0) & a1.any(axis=1)
+    cases.append(case(
+        "binop", np.stack([np.ones(P), np.ones(P), node], 1),
+        np.stack([s0, np.where(unary, 0, s1), np.zeros(P)], 1), np.zeros((P, 3)),
+        rows([-1, -1, 0]), rows([-1, -1, 1]), np.stack([a0, a1, np.zeros_like(a0)], 1),
+        np.stack([need_a, need_b, m_node], 1)))
+    # repeat: rows 1 and 3 repeat rows 0 and 2, row 4 a live row of the tape
+    R = 6
+    t_op, t_a, t_b, t_imm = (x.cpu().numpy() for x in tape[:4])
+    old = rng.integers(1, 14, P)
+    lanes = np.arange(P)
+    op = rows([29, 29, 30, 30, 0, 31]).copy()
+    a = np.stack([rng.integers(0, 1 << 20, P)] * 2 + [np.zeros(P)] * 2
+                 + [t_a[lanes, old], np.zeros(P)], 1)
+    b = np.stack([rng.integers(0, 64, P)] * 2 + [rng.integers(0, 64, P)] * 2
+                 + [t_b[lanes, old], np.zeros(P)], 1)
+    op[:, 4] = t_op[lanes, old]
+    imm = np.zeros((P, R, 8), np.int64)
+    imm[:, 0] = imm[:, 1] = words((P,))
+    imm[:, 2] = imm[:, 3] = words((P,))
+    imm[:, 4] = t_imm[lanes, old]
+    cases.append(case("repeat", op, a, b, rows([-1, -1, 0, 1, -1, 3]),
+                      rows([-1, -1, -1, -1, -1, 4]), imm, rng.random((P, R)) < 0.9))
+    # collision: row 5 of lanes 4 .. P/2 carries row 0's fingerprint
+    R = 4
+    op = rows([29, 30, 31, 29]).copy()
+    a = rng.integers(0, 1 << 20, (P, R))
+    b = rng.integers(0, 64, (P, R))
+    imm = words((P, R), 0.5)
+    forged = [x.clone() for x in tape]
+    h0 = hash_bits(tape_row_hash(*(torch.as_tensor(x) for x in (op[:, 0], a[:, 0], b[:, 0],
+                                                                 imm[:, 0]))))
+    forged[4][4:P // 2, 5] = h0[4:P // 2].to(dev)
+    cases.append(case("collision", op, a, b, rows([-1] * R), rows([-1] * R), imm,
+                      rng.random((P, R)) < 0.9, forged))
+    # random
+    R = 16
+    imm = np.zeros((P, R, 8), np.int64)
+    imm[:, :, 0] = rng.integers(0, 2, (P, R))
+    cases.append(case("random", rng.integers(29, 32, (P, R)), rng.integers(0, 4, (P, R)),
+                      rng.integers(0, 4, (P, R)), rng.integers(-2, R + 2, (P, R)),
+                      rng.integers(-2, R + 2, (P, R)), imm, rng.random((P, R)) < 0.7))
+    return cases
+
+
+def check_k3_group(dev, rng):
+    """K3's group entry point against its plain version (R sequential
+    plain appends) on every case of :func:`group_cases` at P = 2048, T =
+    512; timed on the chain (the SHA3 chain's 10 rows, the main path's
+    larger group) through a descriptor bound once."""
+    import torch
+    from mythril_tpu_torch import kernels
+    from mythril_tpu_torch.config import DEFAULT_LIMITS
+    from mythril_tpu_torch.symbolic.engine import append_group_plain
+
+    P, T = P_MAIN, DEFAULT_LIMITS.tape_len
+    base = group_tape(dev, rng, P, T)
+    err, chain = 0, None
+    for name, tape, inputs in group_cases(dev, rng, base):
+        tk, tp = [x.clone() for x in tape], [x.clone() for x in tape]
+        out_k, ovf_k = kernels.tape_append_group(*tk, *inputs)
+        out_p, ovf_p = append_group_plain(*tp, *inputs)
+        e = max(max_abs_err(out_k, out_p), max_abs_err(ovf_k, ovf_p),
+                *(max_abs_err(x, y) for x, y in zip(tk, tp)))
+        mask = inputs[6]
+        # lanes 0 and 1 overflow unless a row of theirs happens to be on the
+        # random tape already
+        if not (bool(ovf_k[:2].any()) and not bool(ovf_k[2:4].any())
+                and bool((tk[5][2:4] == tape[5][2:4]).all())):
+            fail(f"K3 group {name}: an overflow of lane 0 or 1, or nothing appended on "
+                 "the masked-off lanes 2 and 3, did not show")
+        print(f"[3] tape_append_group {name}: max_abs_err {e}; R = {mask.shape[1]}, "
+              f"{int(mask.sum())} rows masked in, {int((tk[5] - tape[5]).sum())} appended, "
+              f"{int(ovf_k.sum())} lanes overflowed", flush=True)
+        err = max(err, e)
+        if name == "chain":
+            chain = (tape, inputs)
+    # timed on one tape (after the first launch every row is a dedup hit or
+    # an overflow), as the engine's loop calls it: a descriptor bound once
+    tape, inputs = chain
+    tk, tp = [x.clone() for x in tape], [x.clone() for x in tape]
+    append_group_plain(*tp, *inputs)
+    out_s, _ = append_group_plain(*tp, *inputs)
+    k3 = kernels.TapeAppend.on_card(dev)
+    ms = time_ms(lambda: kernels.tape_append_group(*tk, *inputs, k3=k3), 50)
+    device_ms = kernel_device_ms(lambda: kernels.tape_append_group(*tk, *inputs, k3=k3),
+                                 "group_kernel", 20)
+    print(f"[3] tape_append_group chain: {ms:.4f} ms through the loop's descriptor, "
+          f"{device_ms:.4f} ms on the device ({inputs[0].shape[1]} rows a lane)", flush=True)
+    plain_ms = time_ms(lambda: append_group_plain(*tp, *inputs), 5)
+    # bytes: per masked-in row the fingerprints its scan reads up to the
+    # first match (or the live tape), the verified row; per row the inputs
+    # and the output; per lane its length and flag
+    mask = inputs[6]
+    hit_rows = torch.where(out_s > 0, out_s + 1, tp[5][:, None])
+    scanned = int(torch.where(mask, hit_rows, 0).sum().item()) * 4
+    nbytes = (scanned + int(mask.sum()) * (3 * 4 + 64)
+              + mask.numel() * (5 * 4 + 64 + 1 + 4) + P * (4 + 1))
+    return dict(name="tape_append_group", source="mythril_tpu_torch/kernels/csrc/tape_append.cu",
                 replaces="mythril_tpu/symbolic/engine.py:84", max_abs_err=err, ms=ms,
                 plain_ms=plain_ms, nbytes=nbytes, ops=0)
 
@@ -1023,15 +1237,17 @@ def sweep_snapshot(dev):
     return sf, env, corpus
 
 
-def random_tapes(dev, rng):
-    """Random tapes holding every op at P = 2048, T = 512 (random starting
-    domains, prop_len and constraints), as a SymFrontier on the card."""
+def random_tapes(dev, rng, P=P_MAIN, limits=None):
+    """Random tapes holding every op at P lanes (default P = 2048, the
+    default limits: T = 512), with random starting domains, prop_len and
+    constraints, as a SymFrontier on ``dev``. Operands are drawn from
+    [-1, idx + 2]: self and forward references and clipped ids occur."""
     import torch
     from mythril_tpu_torch.config import DEFAULT_LIMITS
     from mythril_tpu_torch.symbolic import make_sym_frontier
 
-    L = DEFAULT_LIMITS
-    P, T, C = P_MAIN, L.tape_len, L.max_constraints
+    L = limits or DEFAULT_LIMITS
+    T, C = L.tape_len, L.max_constraints
     op = rng.integers(0, 29, (P, T)).astype(np.int32)
     op[rng.random((P, T)) < 0.3] = 1  # CONST
     span = (np.arange(T) + 3)[None, :]
@@ -1132,14 +1348,56 @@ def _sweep_args(sf):
             sf.con_node, sf.con_sign, sf.con_len]
 
 
+def ptxas_builds(parent_src: str):
+    """``--parent-k6 SRC``: build the parent tree's propagate_sweep.cu
+    (SRC, in a copy of that tree's ``csrc/``) and this tree's K6 and K3
+    sources with nvcc and ``-Xptxas=-v`` into a temporary directory, all
+    at once. -> (the parent's library, {build: ptxas's register and spill
+    lines})."""
+    import ctypes
+    import tempfile
+
+    from mythril_tpu_torch import kernels
+
+    nvcc = kernels._nvcc()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ptxas_")
+    csrc = os.path.join(ROOT, "mythril_tpu_torch", "kernels", "csrc")
+    srcs = {"parent propagate_sweep": os.path.abspath(parent_src),
+            "propagate_sweep": os.path.join(csrc, "propagate_sweep.cu"),
+            "tape_append": os.path.join(csrc, "tape_append.cu")}
+    procs = {name: subprocess.Popen(
+        [nvcc, "-Xptxas=-v", *kernels.NVCC_FLAGS, "-o",
+         os.path.join(tmp, name.replace(" ", "_") + ".so"), src],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for name, src in srcs.items()}
+    logs = {}
+    for name, proc in procs.items():
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            fail(f"nvcc {srcs[name]}:\n{out[-3000:]}")
+        logs[name] = [ln.strip() for ln in out.splitlines()
+                      if "entry function" in ln or "spill" in ln or "Used" in ln]
+    lib = ctypes.CDLL(os.path.join(tmp, "parent_propagate_sweep.so"))
+    kernels.bind_propagate_sweep(lib)
+    return lib, logs
+
+
+def argv_value(flag: str):
+    """The value after ``flag`` on the command line, or None."""
+    return sys.argv[sys.argv.index(flag) + 1] if flag in sys.argv[:-1] else None
+
+
 def check_k6(dev, rng):
+    """K6 against its plain version on random tapes and on a real
+    frontier; timed on both, and with ``--parent-k6 SRC`` against the
+    parent tree's K6 on the same inputs in turns (parent, this, this,
+    parent)."""
     import torch
     from mythril_tpu_torch import kernels
     from mythril_tpu_torch.symbolic.propagate import propagate_feasibility_plain
 
     err = 0
-    for what, sf in (("random tapes", random_tapes(dev, rng)),
-                     ("batch snapshot", sweep_snapshot(dev)[0])):
+    tapes = {"random tapes": random_tapes(dev, rng), "batch snapshot": sweep_snapshot(dev)[0]}
+    for what, sf in tapes.items():
         args = _sweep_args(sf)
         inf = kernels.propagate_sweep(*args)
         want, inf_p = propagate_feasibility_plain(sf)
@@ -1150,18 +1408,45 @@ def check_k6(dev, rng):
         print(f"[3] propagate_sweep {what}: max_abs_err {e}, {new} new nodes, "
               f"{int(inf.sum())} infeasible lanes", flush=True)
         err = max(err, e)
+
+    def launcher(sf, fn=None):
+        args = _sweep_args(sf)
+        pl0 = sf.prop_len.clone()
+        stream = torch.cuda.current_stream(dev).cuda_stream
+
+        def launch():
+            args[5].copy_(pl0)  # every lane walks its new nodes each launch
+            if fn is None:
+                kernels.propagate_sweep(*args)
+            else:
+                kernels.sweep_call(fn, stream, *args)
+        return launch
+
+    parent = argv_value("--parent-k6")
+    if parent:
+        lib, logs = ptxas_builds(parent)
+        for name, lines in logs.items():
+            for ln in lines:
+                print(f"[3] ptxas {name}: {ln}", flush=True)
+        for what, sf in tapes.items():
+            this, old = launcher(sf), launcher(sf, lib.propagate_sweep)
+            turns = [time_ms(f, 10) for f in (old, this, this, old)]
+            dev_ms = [kernel_device_ms(f, "sweep_kernel", 5) for f in (old, this)]
+            print(f"[3] propagate_sweep {what}, the parent's K6 and this one on the same "
+                  f"inputs in turns (parent, this, this, parent): "
+                  f"{' / '.join(f'{x:.4f}' for x in turns)} ms; on the device parent "
+                  f"{dev_ms[0]:.4f}, this {dev_ms[1]:.4f} ms", flush=True)
     # timed on random tapes (every lane walks its new nodes each launch)
     sf_r = random_tapes(dev, rng)
-    args = _sweep_args(sf_r)
-    pl0 = sf_r.prop_len.clone()
-
-    def launch():
-        args[5].copy_(pl0)
-        kernels.propagate_sweep(*args)
-
+    launch = launcher(sf_r)
     ms = time_ms(launch, 10)
+    snap_ms = time_ms(launcher(tapes["batch snapshot"]), 10)
+    device_ms = kernel_device_ms(launch, "sweep_kernel", 5)
+    print(f"[3] propagate_sweep: random tapes {ms:.4f} ms ({device_ms:.4f} on the device), "
+          f"batch snapshot {snap_ms:.4f} ms", flush=True)
     # the plain sweep takes seconds here: one timed call, no warm-up
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    pl0 = sf_r.prop_len.clone()
     start.record()
     done, _ = propagate_feasibility_plain(sf_r)
     end.record()
@@ -1754,7 +2039,7 @@ def main() -> int:
     # phase 3: kernels against their plain versions
     rng = np.random.default_rng(20261017)
     results = [check_k1(dev, rng), check_k2(dev, rng), check_k3(dev, rng),
-               check_k4(dev, rng), check_k5(dev, rng), check_k6(dev, rng),
+               check_k3_group(dev, np.random.default_rng(20261018)), check_k4(dev, rng), check_k5(dev, rng), check_k6(dev, rng),
                check_k7(dev, rng), check_k8(dev, rng), *check_k9(dev, rng),
                *check_k10(dev, rng)]
     for r in results:
@@ -1943,14 +2228,15 @@ def run_paths(dev, card) -> dict:
                                 "-t", "2"]),
               ("precompiles", ["-f", runtime, "--creation-code", creation])],
     }
-    need = {"a": K10_SYM + ("tape_append",),
-            "b": K10_SYM + ("sha256", "modexp_u256", "tape_append")}
+    need = {"a": K10_SYM + K3, "b": K10_SYM + ("sha256", "modexp_u256") + K3}
     launches = dict(concrete)
     for part, runs in parts.items():
         part_counts = dict.fromkeys(kernels.KERNELS, 0)
         for name, argv in runs:
             _, counts = counted(lambda: run_cli(name, argv))
             print(f"[5{part}] {name} launches {counts}", flush=True)
+            k3_launches(f"[5{part}] analyze {name}", counts,
+                        K3_ERC20FULL_MAX if name == "erc20full" else None)
             if name == "precompiles":
                 for k in ("sha256", "modexp_u256"):
                     if counts[k] <= 0:
@@ -1997,7 +2283,7 @@ def run_paths(dev, card) -> dict:
         # the enumeration and external paths, as in the JAX engine)
         if name == "config4" and stats["frames_pushed"] <= 0:
             fail(f"{name}: no sub-frame was pushed")
-        for k in K10_SYM + ("tape_append",):
+        for k in K10_SYM + K3:
             if counts[k] <= 0:
                 fail(f"{name}: kernel {k} was not launched")
         for k, n in counts.items():
@@ -2008,6 +2294,7 @@ def run_paths(dev, card) -> dict:
     names = [f"erc20full_{i}" for i in range(BATCH_CONTRACTS)] + \
         [f"erc721_{i}" for i in range(BATCH_CONTRACTS)]
     torch.cuda.reset_peak_memory_stats()
+    allocated0 = torch.cuda.memory_allocated()
     syncs0 = ci.HOST_SYNCS["count"]
     steps0 = ENGINE_STATS["lane_steps"]
     supersteps0 = ENGINE_STATS["supersteps"]
@@ -2016,6 +2303,7 @@ def run_paths(dev, card) -> dict:
         codes, contract_names=names, limits=DEFAULT_LIMITS, lanes_per_contract=64,
         max_steps=512, transaction_count=2, device=dev))
     t_engine = time.monotonic() - t0
+    engine_peak = torch.cuda.max_memory_allocated()
     report = fire_lasers(sym)
     wall = time.monotonic() - t0
     lane_steps = ENGINE_STATS["lane_steps"] - steps0
@@ -2027,11 +2315,13 @@ def run_paths(dev, card) -> dict:
         "contracts_per_s": len(codes) / wall,
         "host_syncs": ci.HOST_SYNCS["count"] - syncs0,
         "max_memory_allocated": torch.cuda.max_memory_allocated(),
+        # what earlier phases left allocated, and the peak of the engine alone
+        "allocated_before": allocated0, "engine_max_memory_allocated": engine_peak,
         "issues": len(report.issues), "launches": batch_launches,
         "surviving_paths": report.coverage.get("surviving_paths"),
     }
     print(f"[7] batch {json.dumps(stats)}", flush=True)
-    for k in K10_SYM + ("tape_append",):
+    for k in K10_SYM + K3:
         if batch_launches[k] <= 0:
             fail(f"kernel {k} was not launched in the batch")
     if {batch_launches[k] for k in K10_SYM} != {stats["supersteps"]}:
@@ -2060,7 +2350,7 @@ def run_paths(dev, card) -> dict:
 
 
 CAMPAIGN_KERNELS = ("evm_prologue", "evm_dispatch", "evm_epilogue", "tape_append",
-                    "propagate_sweep", "fork_plan")
+                    "tape_append_group", "propagate_sweep", "fork_plan")
 
 
 def campaign_cli(corpus_dir, extra):
@@ -2136,6 +2426,7 @@ def run_campaign(dev, card) -> dict:
         docs[what] = got
         print(f"[11] campaign {what}: equals the JAX pin ({pin}); {json.dumps(stats)}; "
               f"launches {counts}; card {card}", flush=True)
+        k3_launches(f"[11] campaign {what}", counts)
 
     with held_inputs("campaign unpipelined"):
         one("unpipelined", ["--no-pipeline", "--init-timeout", "300"], "plain")
@@ -2204,7 +2495,22 @@ def require_launches(what, counts, sweeps, kernels_needed):
 # points); the concrete MUL/DIV/EXP/MULMOD/SHA3 run inside K10, so K1, K2,
 # K8 and K9 no longer launch on an analyze
 K10_SYM = ("evm_prologue", "evm_dispatch", "evm_epilogue")
-ARITH_KERNELS = K10_SYM + ("fork_plan", "tape_append")
+# K3's entry points: the overlay's SHA3 chain and binary ops append in
+# groups, the havocs and the claimed handlers one row at a time
+K3 = ("tape_append", "tape_append_group")
+ARITH_KERNELS = K10_SYM + ("fork_plan",) + K3
+# K3 launches an erc20full analyze may take at the CLI defaults (4,306
+# before the group entry point; ~10 a superstep over 214 supersteps with it)
+K3_ERC20FULL_MAX = 2500
+
+
+def k3_launches(what, counts, limit=None):
+    """Print a run's K3 launches; fail above ``limit``."""
+    n = counts["tape_append"] + counts["tape_append_group"]
+    print(f"{what}: K3 launches {n} ({counts['tape_append']} single-row, "
+          f"{counts['tape_append_group']} group)", flush=True)
+    if limit is not None and n > limit:
+        fail(f"{what}: {n} K3 launches, more than {limit}")
 
 
 def wrapper_run(what, build, pin, keys=COVERAGE_KEYS):
@@ -2304,7 +2610,7 @@ def run_policies(dev) -> dict:
             [arith_code()], contract_names=["MAIN"], limits=DEFAULT_LIMITS, resume_from=mid,
             deadline_chunk_steps=16, **kw), "arith_bfs.json",
         keys=("lanes", "surviving_paths", "dropped_forks", "killed_infeasible", "lanes_errored"))
-    require_launches("arith resumed", counts, sweeps, K10_SYM + ("fork_plan", "tape_append"))
+    require_launches("arith resumed", counts, sweeps, ARITH_KERNELS)
     add(counts)
     return launches
 

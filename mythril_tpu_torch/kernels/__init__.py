@@ -3,7 +3,9 @@
 =====  ==========================  =========================================
 K1     ``csrc/u256_divmod.cu``     ``divmod_u256`` — u256 DIV/MOD
 K2     ``csrc/keccak256.cu``       ``keccak256`` — SHA3 of per-lane bytes
-K3     ``csrc/tape_append.cu``     ``tape_append`` — hash-consed tape append
+K3     ``csrc/tape_append.cu``     ``tape_append``, ``tape_append_group`` —
+                                   hash-consed tape append, one row or R
+                                   rows a lane in one launch
 K4     ``csrc/sha256.cu``          ``sha256`` — SHA-256 (precompile 0x2)
 K5     ``csrc/u256_modexp.cu``     ``modexp_u256`` — MODEXP (precompile 0x5)
 K6     ``csrc/propagate_sweep.cu`` ``propagate_sweep`` — feasibility sweep
@@ -19,7 +21,21 @@ K10    ``csrc/evm_step.cu``        ``evm_prologue``, ``evm_dispatch``,
 ``csrc/u256.cuh`` holds the limb helpers, the long division and the
 Barrett reduction that K1, K5, K6, K8, K9 and K10 share; ``csrc/keccak.cuh``
 the permutation K2 and K10 share; ``csrc/evm_step.cuh`` K10's per-lane
-body (the CPU tests build it as host C++).
+body, ``csrc/tape_append.cuh`` K3's and ``csrc/propagate.cuh`` K6's
+per-warp bodies (the CPU tests build all three as host C++).
+
+K3 and K6 run a warp per frontier lane. K3's warp scans the lane's
+fingerprints 128 at a time and appends each row in place; its group
+entry point appends the engine's SHA3 chain (10 rows) or a binary op's
+CONST, CONST and node (3 rows) in one launch, each row's scan seeing the
+rows before it. A launch's device work is a few microseconds, less than
+its host side: the tape is marshaled once per loop (:class:`TapeAppend`),
+and a group pays the host side once for its rows.
+K6's warp takes the lane's new tape nodes in windows of 32, one a thread,
+in rounds as deep as the window's dependency chain, stages their domains
+in shared memory and commits them with coalesced stores; its bound is
+the bytes of the nodes' rows and domains, and what stays serial is a
+window's chain and the windows of a lane.
 
 Each source has a plain C interface. :func:`build` compiles them with
 ``nvcc`` — one process per source, all started together — into shared
@@ -35,7 +51,8 @@ outputs with ``torch.empty``, launches on PyTorch's current stream, raises
 if the launch returned a CUDA error, and adds one to its ``launches``
 counter. K10 works in place on frontier fields its caller owns, through
 a launch descriptor (:class:`EvmStep`) that a loop builds once and that
-re-marshals only the tensors that changed since its last launch. The
+re-marshals only the tensors that changed since its last launch; K3 on
+the tape the same way (:class:`TapeAppend`). The
 plain PyTorch versions live beside their callers (``ops/u256.py``, ``ops/keccak.py``, ``ops/sha256.py``,
 ``symbolic/engine.py``, ``symbolic/propagate.py``,
 ``core/interpreter.py``); those callers route a CPU tensor to the plain
@@ -54,6 +71,7 @@ import shutil
 import subprocess
 import threading
 import time
+import weakref
 
 import torch
 
@@ -76,6 +94,8 @@ SOURCES = {
 MAX_SMEM = 232448
 NVCC_FLAGS = ["-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
+
+_B, _U8, _I32, _I64 = torch.bool, torch.uint8, torch.int32, torch.int64
 
 _LOCK = threading.Lock()
 _LIBS: dict = {}
@@ -175,6 +195,21 @@ def ensure_built(nvcc: str, verbose: bool = False) -> str:
     return "compiled"
 
 
+def bind_tape_append(lib):
+    """Argument and result types of K3's entry points on a loaded library
+    (the nvcc build here; the CPU tests' host build of the same body)."""
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.tape_append.argtypes = [vp, ci] + [vp] * 7 + [ci, vp]
+    lib.tape_append_group.argtypes = [vp, ci] + [vp] * 9 + [ci, ci, vp]
+    lib.tape_append.restype = lib.tape_append_group.restype = ci
+
+
+def bind_propagate_sweep(lib):
+    """Argument and result types of K6's entry point on a loaded library."""
+    lib.propagate_sweep.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    lib.propagate_sweep.restype = ctypes.c_int
+
+
 def build(verbose: bool = False) -> float:
     """Make sure the libraries match the sources (:func:`ensure_built`:
     compiled by this process or reused from an earlier one, as
@@ -190,18 +225,17 @@ def build(verbose: bool = False) -> float:
         vp, ci = ctypes.c_void_p, ctypes.c_int
         libs["u256_divmod"].divmod_u256.argtypes = [vp, vp, vp, vp, ci, vp]
         libs["keccak256"].keccak256.argtypes = [vp, vp, vp, ci, ci, vp]
-        libs["tape_append"].tape_append.argtypes = [vp] * 13 + [ci, ci, vp]
+        bind_tape_append(libs["tape_append"])
         libs["sha256"].sha256.argtypes = [vp, vp, vp, ci, ci, vp]
         libs["u256_modexp"].modexp_u256.argtypes = [vp, vp, vp, vp, ci, vp]
-        libs["propagate_sweep"].propagate_sweep.argtypes = [vp] * 14 + [ci] * 3 + [vp]
+        bind_propagate_sweep(libs["propagate_sweep"])
         libs["fork_plan"].fork_plan.argtypes = [vp] * 13 + [ci] * 8 + [vp]
         libs["u256_mul"].u256_mul.argtypes = [vp, vp, vp, ci, ci, vp]
         libs["u256_mulmod_exp"].u256_mod_wide.argtypes = [vp, vp, vp, ci, vp]
         libs["u256_mulmod_exp"].u256_exp.argtypes = [vp, vp, vp, ci, vp]
         bind_evm_step(libs["evm_step"])
         for lib, fn in (("u256_divmod", "divmod_u256"), ("keccak256", "keccak256"),
-                        ("tape_append", "tape_append"), ("sha256", "sha256"),
-                        ("u256_modexp", "modexp_u256"), ("propagate_sweep", "propagate_sweep"),
+                        ("sha256", "sha256"), ("u256_modexp", "modexp_u256"),
                         ("fork_plan", "fork_plan"),
                         ("u256_mul", "u256_mul"), ("u256_mulmod_exp", "u256_mod_wide"),
                         ("u256_mulmod_exp", "u256_exp")):
@@ -302,36 +336,148 @@ def keccak256(data: torch.Tensor, length: torch.Tensor):
     return out
 
 
+# K3's tape tensors, in the order of ``k3::Tape`` (csrc/tape_append.cuh)
+TAPE_FIELDS = (("tape_op", _I32), ("tape_a", _I32), ("tape_b", _I32), ("tape_imm", _I64),
+               ("tape_hash", _I32), ("tape_len", _I32))
+#: rows one group launch of K3 takes (``k3::MAX_ROWS``)
+MAX_GROUP_ROWS = 16
+
+
+def _DEAD():
+    """An empty slot of :class:`TapeAppend`, called like a dead weak
+    reference."""
+    return None
+
+
+def _device(device) -> torch.device:
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
+class TapeAppend:
+    """K3's launch descriptor: the tape's six pointers, marshaled for a
+    loop over one frontier and kept up to date from append to append.
+
+    :meth:`bind` compares each tape tensor with the one its slot holds, by
+    object, and checks (device, dtype, shape, contiguity) and re-marshals
+    only the tensors that changed: the engine appends in place, and
+    replaces the tape only where ``expand_forks`` and the migrations
+    gather a new one. :meth:`append` and :meth:`append_group` then check
+    and marshal only their row inputs. ``sym_run`` builds one per call;
+    a wrapper given none builds its own. It holds the tape tensors by weak
+    reference: a tape the loop has replaced is freed as it was without the
+    descriptor, and a slot whose tensor is gone is marshaled again."""
+
+    def __init__(self, lib, stream: int, device):
+        self.lib, self.stream, self.device = lib, stream, _device(device)
+        self._ptrs = (ctypes.c_uint64 * len(TAPE_FIELDS))()
+        self._c_ptrs = ctypes.cast(self._ptrs, ctypes.c_void_p)
+        self._held = [_DEAD] * len(TAPE_FIELDS)
+        self.P = self.T = None
+        #: tape tensors checked and marshaled so far
+        self.refreshed = 0
+
+    @classmethod
+    def on_card(cls, device) -> "TapeAppend":
+        """A descriptor for the nvcc build on ``device``'s current stream."""
+        dev = torch.device(device)
+        if dev.type != "cuda":
+            raise ValueError(f"K3: expected a CUDA tensor, got one on {dev}")
+        return cls(_lib("tape_append"), _stream(dev), dev)
+
+    def _check(self, t, what, dtype, shape):
+        if t.device != self.device:
+            raise ValueError(f"{what}: expected a tensor on {self.device}, got {t.device}")
+        _check_layout(t, what, dtype, shape)
+
+    def bind(self, tape_op, tape_a, tape_b, tape_imm, tape_hash, tape_len):
+        """Point the descriptor at these tape tensors."""
+        tape = (tape_op, tape_a, tape_b, tape_imm, tape_hash, tape_len)
+        held = self._held
+        if all(t is h() for t, h in zip(tape, held)):
+            return
+        P, T = tape_op.shape
+        if (P, T) != (self.P, self.T):
+            self.P, self.T = P, T
+            held[:] = [_DEAD] * len(held)
+        for i, (t, (name, dtype)) in enumerate(zip(tape, TAPE_FIELDS)):
+            if t is not held[i]():
+                shape = (P,) if name == "tape_len" else (P, T, 8) if name == "tape_imm" else (P, T)
+                self._check(t, f"tape_append {name}", dtype, shape)
+                self._ptrs[i] = t.data_ptr()
+                held[i] = weakref.ref(t)
+                self.refreshed += 1
+
+    def _rows(self, what, rows):
+        """The row inputs' pointers, each checked: (tensor, name, dtype,
+        shape)."""
+        dev = self.device
+        for t, name, dtype, shape in rows:
+            if t.dtype != dtype or t.shape != shape or t.device != dev or not t.is_contiguous():
+                self._check(t, f"{what} {name}", dtype, shape)
+        return [t.data_ptr() for t, *_ in rows]
+
+    def append(self, op, a, b, imm, mask):
+        """One row per lane (``op``, ``a``, ``b`` int32[P], ``imm``
+        int64[P, 8], ``mask`` bool[P]) -> (ids int32[P], overflow
+        bool[P])."""
+        P, dev = self.P, self.device
+        ptrs = self._rows("tape_append", (
+            (op, "op", _I32, (P,)), (a, "a", _I32, (P,)), (b, "b", _I32, (P,)),
+            (imm, "imm", _I64, (P, 8)), (mask, "mask", _B, (P,))))
+        ids = torch.empty(P, dtype=_I32, device=dev)
+        overflow = torch.empty(P, dtype=_B, device=dev)
+        _raise_on(self.lib.tape_append(self._c_ptrs, self.T, *ptrs, ids.data_ptr(),
+                                       overflow.data_ptr(), P, self.stream), "tape_append")
+        tape_append.launches += 1
+        return ids, overflow
+
+    def append_group(self, op, a, b, a_src, b_src, imm, mask):
+        """R rows per lane in one launch, in order (``op``, ``a``, ``b``,
+        ``a_src``, ``b_src`` int32[P, R], ``imm`` int64[P, R, 8], ``mask``
+        bool[P, R]); ``a_src[p, r]`` in [0, r) makes the operand the output
+        of that earlier row, anything else the literal ``a[p, r]``. ->
+        (out int32[P, R]: each row's id where masked in, its resolved a
+        where not; overflow bool[P]: any row overflowed)."""
+        P, dev = self.P, self.device
+        if op.dim() != 2 or not 1 <= op.shape[1] <= MAX_GROUP_ROWS:
+            raise ValueError(f"tape_append_group: op must be [P, R] with 1 <= R <= "
+                             f"{MAX_GROUP_ROWS}, got {tuple(op.shape)}")
+        R = op.shape[1]
+        ptrs = self._rows("tape_append_group", (
+            (op, "op", _I32, (P, R)), (a, "a", _I32, (P, R)), (b, "b", _I32, (P, R)),
+            (a_src, "a_src", _I32, (P, R)), (b_src, "b_src", _I32, (P, R)),
+            (imm, "imm", _I64, (P, R, 8)), (mask, "mask", _B, (P, R))))
+        out = torch.empty((P, R), dtype=_I32, device=dev)
+        overflow = torch.empty(P, dtype=_B, device=dev)
+        _raise_on(self.lib.tape_append_group(self._c_ptrs, self.T, *ptrs, out.data_ptr(),
+                                             overflow.data_ptr(), P, R, self.stream),
+                  "tape_append_group")
+        tape_append_group.launches += 1
+        return out, overflow
+
+
 @_launch_counter
 def tape_append(tape_op, tape_a, tape_b, tape_imm, tape_hash, tape_len,
-                op, a, b, imm, mask):
+                op, a, b, imm, mask, k3: TapeAppend = None):
     """K3, in place on the tape tensors. Returns (ids int32[P],
-    overflow bool[P])."""
-    dev = tape_op.device
-    P, T = tape_op.shape
-    for t, what, dt, shp in (
-            (tape_op, "tape_op", torch.int32, (P, T)),
-            (tape_a, "tape_a", torch.int32, (P, T)),
-            (tape_b, "tape_b", torch.int32, (P, T)),
-            (tape_imm, "tape_imm", torch.int64, (P, T, 8)),
-            (tape_hash, "tape_hash", torch.int32, (P, T)),
-            (tape_len, "tape_len", torch.int32, (P,)),
-            (op, "op", torch.int32, (P,)),
-            (a, "a", torch.int32, (P,)),
-            (b, "b", torch.int32, (P,)),
-            (imm, "imm", torch.int64, (P, 8)),
-            (mask, "mask", torch.bool, (P,))):
-        _check(t, f"tape_append {what}", dt, shp, dev)
-    ids = torch.empty(P, dtype=torch.int32, device=dev)
-    overflow = torch.empty(P, dtype=torch.bool, device=dev)
-    err = _lib("tape_append").tape_append(
-        tape_op.data_ptr(), tape_a.data_ptr(), tape_b.data_ptr(), tape_imm.data_ptr(),
-        tape_hash.data_ptr(), tape_len.data_ptr(), op.data_ptr(), a.data_ptr(),
-        b.data_ptr(), imm.data_ptr(), mask.data_ptr(), ids.data_ptr(),
-        overflow.data_ptr(), P, T, _stream(dev))
-    _raise_on(err, "tape_append")
-    tape_append.launches += 1
-    return ids, overflow
+    overflow bool[P]). ``k3``: the loop's descriptor, bound to this tape
+    here; None: a descriptor of its own, every tensor checked."""
+    k3 = k3 or TapeAppend.on_card(tape_op.device)
+    k3.bind(tape_op, tape_a, tape_b, tape_imm, tape_hash, tape_len)
+    return k3.append(op, a, b, imm, mask)
+
+
+@_launch_counter
+def tape_append_group(tape_op, tape_a, tape_b, tape_imm, tape_hash, tape_len,
+                      op, a, b, a_src, b_src, imm, mask, k3: TapeAppend = None):
+    """K3's group entry point (:meth:`TapeAppend.append_group`), in place
+    on the tape tensors. -> (out int32[P, R], overflow bool[P])."""
+    k3 = k3 or TapeAppend.on_card(tape_op.device)
+    k3.bind(tape_op, tape_a, tape_b, tape_imm, tape_hash, tape_len)
+    return k3.append_group(op, a, b, a_src, b_src, imm, mask)
 
 
 @_launch_counter
@@ -420,36 +566,45 @@ def exp_u256(base: torch.Tensor, e: torch.Tensor):
     return out
 
 
+# K6's tensors in the order of its C interface (csrc/propagate_sweep.cu),
+# with their dtypes and shapes
+SWEEP_TENSORS = (
+    ("tape_op", _I32, "PT"), ("tape_a", _I32, "PT"), ("tape_b", _I32, "PT"),
+    ("tape_imm", _I64, "PT8"), ("tape_len", _I32, "P"), ("prop_len", _I32, "P"),
+    ("iv_lo", _I64, "PT8"), ("iv_hi", _I64, "PT8"), ("kb_m", _I64, "PT8"), ("kb_v", _I64, "PT8"),
+    ("con_node", _I32, "PC"), ("con_sign", _B, "PC"), ("con_len", _I32, "P"))
+
+
+def sweep_call(fn, stream: int, *tensors):
+    """One launch of K6's C entry point ``fn`` (the nvcc build's; the CPU
+    tests pass a host build's) on ``tensors`` in the order of
+    ``SWEEP_TENSORS``, each checked to lie on the first one's device. ->
+    the per-lane infeasible flags ``bool[P]``."""
+    dev = tensors[0].device
+    P, T = tensors[0].shape
+    C = tensors[10].shape[1]
+    dims = {"PT": (P, T), "PT8": (P, T, 8), "P": (P,), "PC": (P, C)}
+    for t, (name, dtype, shape) in zip(tensors, SWEEP_TENSORS):
+        if t.device != dev:
+            raise ValueError(f"propagate_sweep {name}: expected a tensor on {dev}, got {t.device}")
+        _check_layout(t, f"propagate_sweep {name}", dtype, dims[shape])
+    infeasible = torch.empty(P, dtype=_B, device=dev)
+    _raise_on(fn(*(t.data_ptr() for t in tensors), infeasible.data_ptr(), P, T, C, stream),
+              "propagate_sweep")
+    return infeasible
+
+
 @_launch_counter
 def propagate_sweep(tape_op, tape_a, tape_b, tape_imm, tape_len, prop_len,
                     iv_lo, iv_hi, kb_m, kb_v, con_node, con_sign, con_len):
     """K6, in place on ``prop_len`` and the four domain tensors. Returns
     the per-lane infeasible flags ``bool[P]``."""
     dev = tape_op.device
-    P, T = tape_op.shape
-    C = con_node.shape[1]
-    for t, what, dt, shp in (
-            (tape_op, "tape_op", torch.int32, (P, T)),
-            (tape_a, "tape_a", torch.int32, (P, T)),
-            (tape_b, "tape_b", torch.int32, (P, T)),
-            (tape_imm, "tape_imm", torch.int64, (P, T, 8)),
-            (tape_len, "tape_len", torch.int32, (P,)),
-            (prop_len, "prop_len", torch.int32, (P,)),
-            (iv_lo, "iv_lo", torch.int64, (P, T, 8)),
-            (iv_hi, "iv_hi", torch.int64, (P, T, 8)),
-            (kb_m, "kb_m", torch.int64, (P, T, 8)),
-            (kb_v, "kb_v", torch.int64, (P, T, 8)),
-            (con_node, "con_node", torch.int32, (P, C)),
-            (con_sign, "con_sign", torch.bool, (P, C)),
-            (con_len, "con_len", torch.int32, (P,))):
-        _check(t, f"propagate_sweep {what}", dt, shp, dev)
-    infeasible = torch.empty(P, dtype=torch.bool, device=dev)
-    err = _lib("propagate_sweep").propagate_sweep(
-        tape_op.data_ptr(), tape_a.data_ptr(), tape_b.data_ptr(), tape_imm.data_ptr(),
-        tape_len.data_ptr(), prop_len.data_ptr(), iv_lo.data_ptr(), iv_hi.data_ptr(),
-        kb_m.data_ptr(), kb_v.data_ptr(), con_node.data_ptr(), con_sign.data_ptr(),
-        con_len.data_ptr(), infeasible.data_ptr(), P, T, C, _stream(dev))
-    _raise_on(err, "propagate_sweep")
+    if not tape_op.is_cuda:
+        raise ValueError(f"propagate_sweep: expected CUDA tensors, got {dev}")
+    infeasible = sweep_call(_lib("propagate_sweep").propagate_sweep, _stream(dev), tape_op,
+                            tape_a, tape_b, tape_imm, tape_len, prop_len, iv_lo, iv_hi, kb_m,
+                            kb_v, con_node, con_sign, con_len)
     propagate_sweep.launches += 1
     return infeasible
 
@@ -518,7 +673,6 @@ def fork_plan(active, fork_req, con_len, fork_dest, contract_id, pc, sp, dropped
 # ``Tables`` attribute) or the step itself ("step": the prologue's op,
 # run and old_pc, dispatch's skip mask, the fused entry point's count of
 # lanes still running). Shapes name the dims.
-_B, _U8, _I32, _I64 = torch.bool, torch.uint8, torch.int32, torch.int64
 EVM_FIELDS = (
     ("active", "f", _B, ("P",)), ("halted", "f", _B, ("P",)), ("error", "f", _B, ("P",)),
     ("err_code", "f", _I32, ("P",)), ("reverted", "f", _B, ("P",)), ("pc", "f", _I32, ("P",)),
@@ -640,10 +794,7 @@ class EvmStep:
     def __init__(self, lib, stream: int, device, berlin: bool = False):
         from ..core.interpreter import Tables
 
-        dev = torch.device(device)
-        if dev.type == "cuda" and dev.index is None:
-            dev = torch.device("cuda", torch.cuda.current_device())
-        self.stream, self.device, self.berlin = stream, dev, berlin
+        self.stream, self.device, self.berlin = stream, _device(device), berlin
         self._fns = {e: getattr(lib, f"evm_{e}") for e in EVM_ENTRIES}
         n = len(EVM_FIELDS)
         self._ptrs = (ctypes.c_uint64 * n)()
@@ -856,7 +1007,8 @@ def evm_block_threads(threads: int) -> int:
 
 
 KERNELS = {"divmod_u256": divmod_u256, "keccak256": keccak256,
-           "tape_append": tape_append, "sha256": sha256, "modexp_u256": modexp_u256,
+           "tape_append": tape_append, "tape_append_group": tape_append_group,
+           "sha256": sha256, "modexp_u256": modexp_u256,
            "propagate_sweep": propagate_sweep, "fork_plan": fork_plan,
            "mul_u256": mul_u256, "mod_wide_u256": mod_wide_u256, "exp_u256": exp_u256,
            "evm_prologue": evm_prologue, "evm_dispatch": evm_dispatch,

@@ -37,6 +37,9 @@ HAVOC leaf — never a wrong value.
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
+
 import numpy as np
 import torch
 
@@ -137,9 +140,10 @@ def append_node(sf: SymFrontier, mask, op, a, b, imm=None):
     Returns (sf, ids) — id per lane (0 where ~mask). Overflow traps the
     lane with ``TAPE_LIMIT``.
 
-    Kernel K3 on a CUDA frontier, :func:`append_node_plain` on a CPU one.
-    Both update the tape tensors IN PLACE (the JAX function returned a
-    new tape): ``sym_run`` and ``sym_superstep`` copy the tape once on
+    Kernel K3 on a CUDA frontier (through the loop's descriptor inside
+    ``sym_run``, see :func:`_loop_k3`), :func:`append_node_plain` on a CPU
+    one. Both update the tape tensors IN PLACE (the JAX function returned
+    a new tape): ``sym_run`` and ``sym_superstep`` copy the tape once on
     entry (:func:`own_loop_fields`), so their caller's frontier keeps
     its tape, and ``expand_forks`` gathers a fresh tape for its copies."""
     P, T = sf.tape_op.shape
@@ -158,7 +162,7 @@ def append_node(sf: SymFrontier, mask, op, a, b, imm=None):
     if sf.tape_op.is_cuda:
         from ..kernels import tape_append
 
-        ids, overflow = tape_append(*args)
+        ids, overflow = tape_append(*args, k3=_K3.get())
     elif not bool(mask.any()):
         # nothing to append (the common case for most of the overlay's
         # appends): ids 0, no write, no trap — reading the mask costs
@@ -169,11 +173,82 @@ def append_node(sf: SymFrontier, mask, op, a, b, imm=None):
     return sf.replace(base=sf.base.trap(overflow, Trap.TAPE_LIMIT)), ids
 
 
-def _sym_or_const(sf: SymFrontier, mask, sym, limbs):
-    """Operand id: existing sym, id 0 for concrete zero, CONST node else."""
-    need = mask & (sym == 0) & ~u256.is_zero(limbs)
-    sf, cid = append_node(sf, need, int(SymOp.CONST), 0, 0, limbs)
-    return sf, torch.where(sym != 0, sym, cid)
+def append_group_plain(tape_op, tape_a, tape_b, tape_imm, tape_hash, tape_len,
+                       op, a, b, a_src, b_src, imm, mask):
+    """Plain version of K3's group entry point, and the definition of its
+    meaning: R sequential :func:`append_node_plain` calls, one per column
+    of the ``[P, R]`` inputs (``imm`` ``[P, R, 8]``). Row r's operand is
+    the literal ``a[:, r]`` unless ``a_src[:, r]`` names an earlier row s
+    (0 <= s < r): then it is row s's output, which is the row's id where
+    ``mask[:, s]`` is set (0 on overflow) and its resolved ``a`` where not.
+    Returns (outputs int32[P, R], overflow bool[P]: any row overflowed)
+    and updates the tape tensors in place.
+
+    A row no lane appends is skipped (the call would change nothing), and
+    a source all lanes share (the call sites' row constants) is resolved
+    without a gather: a few host reads up front, which cost nothing on
+    the CPU."""
+    P, R = op.shape
+    lanes = ci._lanes(tape_len)
+    on = mask.any(dim=0).tolist()
+    shared = [[f if same else None for f, same in zip(src[0].tolist(),
+                                                      (src == src[:1]).all(dim=0).tolist())]
+              for src in (a_src, b_src)]
+    outs = []
+    overflow = torch.zeros(P, dtype=torch.bool, device=op.device)
+
+    def resolve(lit, src, s, r):
+        if s is not None:
+            return outs[s] if 0 <= s < r else lit
+        if r == 0:
+            return lit
+        prev = torch.stack(outs, dim=1)[lanes, torch.clamp(src, 0, r - 1).long()]
+        return torch.where((src >= 0) & (src < r), prev, lit)
+
+    for r in range(R):
+        ar = resolve(a[:, r], a_src[:, r], shared[0][r], r)
+        br = resolve(b[:, r], b_src[:, r], shared[1][r], r)
+        if on[r]:
+            m = mask[:, r]
+            ids, ovf = append_node_plain(tape_op, tape_a, tape_b, tape_imm, tape_hash, tape_len,
+                                         op[:, r], ar, br, imm[:, r], m)
+            overflow |= ovf
+            ar = torch.where(m, ids, ar)
+        outs.append(ar)
+    return torch.stack(outs, dim=1), overflow
+
+
+def append_group(sf: SymFrontier, mask, op, a, b, a_src, b_src, imm):
+    """R hash-consed appends per lane in one call, in order, with operands
+    that may be earlier rows' outputs (:func:`append_group_plain` defines
+    the meaning; all inputs ``[P, R]``, ``imm`` ``[P, R, 8]``). Returns
+    (sf, outputs int32[P, R]); an overflow in any row traps the lane with
+    ``TAPE_LIMIT`` once, as the rows' sequential traps would (the first
+    cause is kept, and every row's is TAPE_LIMIT). K3's group entry point
+    on a CUDA frontier, one launch; the plain version on a CPU one."""
+    args = (sf.tape_op, sf.tape_a, sf.tape_b, sf.tape_imm, sf.tape_hash, sf.tape_len,
+            op, a, b, a_src, b_src, imm, mask)
+    if sf.tape_op.is_cuda:
+        from ..kernels import tape_append_group
+
+        out, overflow = tape_append_group(*args, k3=_K3.get())
+    else:
+        out, overflow = append_group_plain(*args)
+    return sf.replace(base=sf.base.trap(overflow, Trap.TAPE_LIMIT)), out
+
+
+_GROUP_ROWS: dict = {}
+
+
+def _group_rows(values, P: int, dev):
+    """int32[P, R] whose column r holds ``values[r]`` on every lane: the
+    row constants of the two group call sites (ops, operand sources),
+    made once per width and device."""
+    key = (tuple(values), P, str(dev))
+    if key not in _GROUP_ROWS:
+        _GROUP_ROWS[key] = torch.tensor(values, dtype=I32, device=dev).expand(
+            P, len(values)).contiguous()
+    return _GROUP_ROWS[key]
 
 
 def _havoc(sf: SymFrontier, mask):
@@ -1445,10 +1520,21 @@ def _overlay(sf: SymFrontier, env: Env, spec: SymSpec, op, m, cls, pre_sp,
     is_unary = (op == 0x15) | (op == 0x19)  # ISZERO NOT
     any_sym = (s[0] != 0) | (~is_unary & (s[1] != 0))
     m_node = m_bin & any_sym & (node_op != 0)
-    sf, aid = _sym_or_const(sf, m_node, s[0], a[0])
-    sf, bid = _sym_or_const(sf, m_node & ~is_unary, s[1], a[1])
-    bid = torch.where(is_unary, 0, bid)
-    sf, r_bin = append_node(sf, m_node, node_op, aid, bid)
+    # one group: a CONST row for each concrete nonzero operand (the JAX
+    # engine's _sym_or_const), then the node on the two rows' outputs. A CONST
+    # row's literal a is the operand's sym id (0 where the row appends, and
+    # 0 for a unary op's b), so its output is the operand's id either way
+    need_a = m_node & (s[0] == 0) & ~u256.is_zero(a[0])
+    need_b = m_node & ~is_unary & (s[1] == 0) & ~u256.is_zero(a[1])
+    const = int(SymOp.CONST)
+    sf, out = append_group(
+        sf, torch.stack([need_a, need_b, m_node], dim=1),
+        torch.cat([_group_rows([const, const], P, dev), node_op[:, None]], dim=1),
+        torch.stack([s[0], torch.where(is_unary, 0, s[1]), torch.zeros_like(s[0])], dim=1),
+        _group_rows([0, 0, 0], P, dev), _group_rows([-1, -1, 0], P, dev),
+        _group_rows([-1, -1, 1], P, dev),
+        torch.stack([a[0], a[1], torch.zeros_like(a[0])], dim=1))
+    aid, bid, r_bin = out.unbind(dim=1)
 
     # symbolic ADD/SUB/MUL/EXP events for the IntegerArithmetics module
     is_arith = (op == 0x01) | (op == 0x02) | (op == 0x03) | (op == 0x0A)
@@ -1568,17 +1654,27 @@ def _overlay(sf: SymFrontier, env: Env, spec: SymSpec, op, m, cls, pre_sp,
     seed_imm = torch.zeros((P, 8), dtype=I64, device=dev)
     seed_imm[:, 0] = torch.clamp(ln64, 0, 2**31)
     seed_imm[:, 1] = off64 % 32
-    sf, chain = append_node(sf, m_chain, int(SymOp.KECCAK_SEED), 0, 0, seed_imm)
     M = f.memory.shape[1]
+    imm_rows = [seed_imm]
     for k in range(NCW):
-        mk = m_chain & in_win[k]
         w_conc = ci._be_bytes_to_word(
             ci._gather_bytes(sf.base.memory, (w0 + k).to(I64) * 32, 32,
                              torch.full_like(off64, M)))
-        imm_k = torch.where((wsyms[k] == 0)[:, None], w_conc, 0)
-        sf, chain2 = append_node(sf, mk, int(SymOp.KECCAK_ABS), chain, wsyms[k], imm_k)
-        chain = torch.where(mk, chain2, chain)
-    sf, dig = append_node(sf, m_chain, int(SymOp.KECCAK), chain, 0)
+        imm_rows.append(torch.where((wsyms[k] == 0)[:, None], w_conc, 0))
+    imm_rows.append(torch.zeros_like(seed_imm))
+    # one group: the seed, an absorb row per word of the window (its a the
+    # chain so far: the previous row's output, which a row the window does
+    # not reach passes on), the digest
+    zero = torch.zeros_like(wsyms[0])
+    rows = NCW + 2
+    sf, chain = append_group(
+        sf, torch.stack([m_chain, *(m_chain & in_win[k] for k in range(NCW)), m_chain], dim=1),
+        _group_rows([int(SymOp.KECCAK_SEED)] + [int(SymOp.KECCAK_ABS)] * NCW
+                    + [int(SymOp.KECCAK)], P, dev),
+        _group_rows([0] * rows, P, dev), torch.stack([zero, *wsyms, zero], dim=1),
+        _group_rows([-1] + list(range(NCW + 1)), P, dev), _group_rows([-1] * rows, P, dev),
+        torch.stack(imm_rows, dim=1))
+    dig = chain[:, -1]
     r_sha = torch.where(m_hvsha, sha_hv, torch.where(m_chain, dig, 0))
 
     # ---- CLS_MEM (concrete offsets) ----
@@ -1792,6 +1888,32 @@ def _berlin_gas_post(sf: SymFrontier, op, run, key_w, key_s) -> SymFrontier:
 # host-read predicate slots of sym_superstep (one transfer per superstep;
 # on the CPU the 16 class-present flags of the plain dispatch come first)
 _P_STORAGE, _P_JUMP, _P_CALL, _P_CREATE, _P_MISC, _P_PRE, _P_FRAMES, _P_INIT = range(8)
+
+
+# the running ``sym_run`` loop's K3 descriptor (``kernels.TapeAppend``);
+# None outside a loop and on the CPU. A context variable and not a
+# parameter: the loop's appends are spread over the overlay and a dozen
+# handlers, and it is set and reset by the loop that owns the tape
+_K3 = contextvars.ContextVar("k3", default=None)
+
+
+@contextlib.contextmanager
+def _loop_k3(device: torch.device):
+    """K3's descriptor for a loop on ``device`` when it is the card, for
+    the loop's appends to reach through ``_K3``: the tape is checked and
+    marshaled at the first append and again only where the loop replaces
+    it. It takes the device, not the frontier: the generator's frame would
+    keep the loop's first frontier alive to its end."""
+    k3 = None
+    if device.type == "cuda":
+        from ..kernels import TapeAppend
+
+        k3 = TapeAppend.on_card(device)
+    token = _K3.set(k3)
+    try:
+        yield
+    finally:
+        _K3.reset(token)
 
 
 # the fields a loop writes in place besides K10's (``kernels.EVM_WRITES``):
@@ -2469,9 +2591,10 @@ def sym_run(sf: SymFrontier, env: Env, corpus: Corpus,
 
     The input is never changed. What the loop writes in place is copied
     once, on entry (:func:`own_loop_fields`: the tape; on the card the
-    fields K10 writes and K6's domains), and K10's descriptor is built
-    once: every superstep of the call then runs K10 in place on those
-    copies (see :func:`_sym_superstep`). The frontier the caller passed —
+    fields K10 writes and K6's domains), and K10's and K3's descriptors
+    are built once: every superstep of the call then runs K10 in place on
+    those copies (see :func:`_sym_superstep`), and K3 appends to a tape
+    marshaled once (:func:`_loop_k3`). The frontier the caller passed —
     the wrapper's between chunks, a saved checkpoint, a batch the campaign
     retries — keeps its tensors as they were."""
     from .propagate import kill_infeasible
@@ -2485,33 +2608,34 @@ def sym_run(sf: SymFrontier, env: Env, corpus: Corpus,
     # row C of the bitmap takes the lanes that write nowhere
     visited = torch.zeros((C + 1, MC), dtype=torch.bool, device=sf.tape_op.device)
     migrate = migrate_every > 0 and defer_starved and 0 < fork_block < P
-    for i in range(max_steps):
-        n_running = ci.host_list(sf.base.running.sum())
-        if not n_running:
-            break
-        ENGINE_STATS["lane_steps"] += n_running
-        ENGINE_STATS["supersteps"] += 1
-        if track_coverage:
-            b = sf.base
-            run = b.running & ~b.exec_init
-            cid = torch.where(run, b.contract_id, C).long()
-            pc = torch.clamp(b.pc, 0, MC - 1).long()
-            visited[cid, pc] = True
-        sf = _stage("superstep_s", _sym_superstep, sf, env, corpus, spec, limits, k10)
-        if ci.host_bool(torch.any(sf.fork_req & sf.base.active)):
-            sf = _stage("forks_s", expand_forks, sf, limits.loop_bound, fork_block,
-                        fork_policy, defer_starved, visited[:C] if track_coverage else None)
-        if propagate_every and (i % propagate_every) == propagate_every - 1:
-            ENGINE_STATS["sweeps"] += 1
-            sf = _stage("propagate_s", kill_infeasible, sf)
-        if migrate and (i % migrate_every) == migrate_every - 1:
-            # fire only when some exhausted block starves AND some block
-            # has room for a lane and its fork
-            occ = sf.base.active.reshape(-1, fork_block).sum(dim=1)
-            starving = (sf.fork_req & sf.base.active).reshape(-1, fork_block).any(dim=1)
-            if ci.host_bool(torch.any(starving & (occ == fork_block))
-                            & torch.any(occ <= fork_block - 2)):
-                sf = migrate_parked_device(sf, fork_block)
+    with _loop_k3(sf.tape_op.device):
+        for i in range(max_steps):
+            n_running = ci.host_list(sf.base.running.sum())
+            if not n_running:
+                break
+            ENGINE_STATS["lane_steps"] += n_running
+            ENGINE_STATS["supersteps"] += 1
+            if track_coverage:
+                b = sf.base
+                run = b.running & ~b.exec_init
+                cid = torch.where(run, b.contract_id, C).long()
+                pc = torch.clamp(b.pc, 0, MC - 1).long()
+                visited[cid, pc] = True
+            sf = _stage("superstep_s", _sym_superstep, sf, env, corpus, spec, limits, k10)
+            if ci.host_bool(torch.any(sf.fork_req & sf.base.active)):
+                sf = _stage("forks_s", expand_forks, sf, limits.loop_bound, fork_block,
+                            fork_policy, defer_starved, visited[:C] if track_coverage else None)
+            if propagate_every and (i % propagate_every) == propagate_every - 1:
+                ENGINE_STATS["sweeps"] += 1
+                sf = _stage("propagate_s", kill_infeasible, sf)
+            if migrate and (i % migrate_every) == migrate_every - 1:
+                # fire only when some exhausted block starves AND some block
+                # has room for a lane and its fork
+                occ = sf.base.active.reshape(-1, fork_block).sum(dim=1)
+                starving = (sf.fork_req & sf.base.active).reshape(-1, fork_block).any(dim=1)
+                if ci.host_bool(torch.any(starving & (occ == fork_block))
+                                & torch.any(occ <= fork_block - 2)):
+                    sf = migrate_parked_device(sf, fork_block)
     if track_coverage:
         return sf, visited[:C]
     return sf

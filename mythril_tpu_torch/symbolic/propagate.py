@@ -10,8 +10,9 @@ Both domains only over-approximate, so a kill is always correct.
 
 The pass is incremental: lane p walks its nodes [prop_len[p],
 tape_len[p]). On the card the sweep and the constraint check are kernel
-K6 (``kernels/csrc/propagate_sweep.cu``): one thread per lane, in place
-on the domain tensors, with no host read. On the CPU the plain version
+K6 (``kernels/csrc/propagate_sweep.cu``): one warp per lane, its new
+nodes in windows of 32 taken in dependency rounds, in place on the
+domain tensors, with no host read. On the CPU the plain version
 below runs the JAX loop: max-new-nodes lock-step iterations over all
 lanes (that count read once per sweep).
 """

@@ -28,6 +28,67 @@ def _rows(rng, n_fresh):
     return op, a, b, imm, mask
 
 
+def group_cases(rng):
+    """K3's group at the engine's two call sites and at the edges, as
+    numpy rows (mask, op, a, b, a_src, b_src: [P, R]; imm [P, R, 8] u32):
+
+    - chain: the SHA3 chain (seed, 8 absorbs on the chain so far, the
+      digest), rows masked off mid-chain (windows of 0-8 words) and lanes
+      with no chain;
+    - binop: CONST, CONST and the node on their outputs, with unary lanes
+      (b literal 0) and zero constants (no CONST row);
+    - duplicate: rows repeating an earlier row of their group, literally
+      and through the same reference.
+
+    Lane 0's tape has room for two rows: it overflows mid-group."""
+    from mythril_tpu_torch.symbolic.ops import SymOp
+
+    def words(shape, p_zero):
+        w = rng.integers(0, 2**32, shape + (8,), dtype=np.uint64).astype(np.uint32)
+        w[rng.random(shape) < p_zero] = 0
+        return w
+
+    rows = lambda vals: np.tile(np.asarray(vals, np.int32), (P, 1))
+    cases = {}
+    m_chain = np.array([1, 1, 0, 1, 1, 1, 0, 1], bool)
+    nw = np.array([8, 3, 5, 0, 8, 1, 2, 6])
+    mask = np.zeros((P, 10), bool)
+    mask[:, 0] = mask[:, 9] = m_chain
+    mask[:, 1:9] = m_chain[:, None] & (np.arange(8)[None, :] < nw[:, None])
+    b = np.zeros((P, 10), np.int32)
+    b[:, 1:9] = rng.integers(1, 30, (P, 8)) * (rng.random((P, 8)) < 0.5)
+    imm = np.zeros((P, 10, 8), np.uint32)
+    imm[:, 0, 0], imm[:, 0, 1] = rng.integers(1, 201, P), rng.integers(0, 32, P)
+    imm[:, 1:9] = np.where((b[:, 1:9] == 0)[..., None], words((P, 8), 0.2), 0)
+    cases["chain"] = (mask, rows([int(SymOp.KECCAK_SEED)] + [int(SymOp.KECCAK_ABS)] * 8
+                                 + [int(SymOp.KECCAK)]), np.zeros((P, 10), np.int32), b,
+                      rows([-1] + list(range(9))), rows([-1] * 10), imm)
+    node = np.array([3, 5, 17, 16, 21, 18, 4, 12], np.int32)  # ISZERO, NOT unary
+    unary = np.isin(node, [17, 21])
+    s0 = np.array([0, 0, 7, 0, 0, 9, 0, 3], np.int32)
+    s1 = np.array([0, 5, 0, 0, 4, 0, 0, 0], np.int32)
+    a0, a1 = words((P,), 0.0), words((P,), 0.0)
+    a0[3] = a1[6] = 0  # zero constants: no CONST row
+    m_node = np.array([1, 1, 1, 1, 1, 1, 1, 0], bool)
+    need_a = m_node & (s0 == 0) & a0.any(axis=1)
+    need_b = m_node & ~unary & (s1 == 0) & a1.any(axis=1)
+    cases["binop"] = (np.stack([need_a, need_b, m_node], 1),
+                      np.stack([np.ones(P, np.int32), np.ones(P, np.int32), node], 1),
+                      np.stack([s0, np.where(unary, 0, s1), np.zeros(P, np.int32)], 1),
+                      np.zeros((P, 3), np.int32), rows([-1, -1, 0]), rows([-1, -1, 1]),
+                      np.stack([a0, a1, np.zeros_like(a0)], 1))
+    a = np.stack([rng.integers(0, 2**20, P)] * 2 + [np.zeros(P)] * 3, 1).astype(np.int32)
+    imm = np.zeros((P, 5, 8), np.uint32)
+    imm[:, 0] = imm[:, 1] = words((P,), 0.0)
+    imm[:, 2] = imm[:, 3] = words((P,), 0.0)
+    mask = rng.random((P, 5)) < 0.85
+    mask[0] = True
+    cases["duplicate"] = (mask, rows([29, 29, 30, 30, 31]), a,
+                          np.tile(rng.integers(0, 40, (P, 1)), (1, 5)).astype(np.int32),
+                          rows([-1, -1, 0, 1, 3]), rows([-1, -1, -1, -1, 2]), imm)
+    return cases
+
+
 def _compute(path):
     """Child process: append sequences through both packages."""
     torch = torch_port_child.torch_single_thread()
@@ -36,13 +97,14 @@ def _compute(path):
     from mythril_tpu.config import TEST_LIMITS
     from mythril_tpu.symbolic.engine import append_node as jax_append
     from mythril_tpu.symbolic.state import make_sym_frontier as jax_make, tape_row_hash
-    from mythril_tpu_torch.symbolic.engine import append_node
+    from mythril_tpu_torch.symbolic.engine import append_group, append_node
     from mythril_tpu_torch.symbolic.state import SymFrontier
 
-    def seeded():
+    def seeded(room=0):
         sf = jax_make(P, TEST_LIMITS)
         tl = np.asarray(sf.tape_len).copy()
-        tl[0] = TEST_LIMITS.tape_len  # lane 0: a full tape, fresh rows overflow
+        # lane 0: a full tape (but ``room`` rows), fresh rows overflow
+        tl[0] = TEST_LIMITS.tape_len - room
         return sf.replace(tape_len=jnp.asarray(tl))
 
     def differing(jsf, tsf):
@@ -105,6 +167,38 @@ def _compute(path):
         and (getattr(host, fl.name).dtype != np.asarray(getattr(jsf, fl.name)).dtype
              or not np.array_equal(getattr(host, fl.name), np.asarray(getattr(jsf, fl.name))))]
 
+    def jax_group(jsf, mask, op, a, b, a_src, b_src, imm):
+        """The group's rows as sequential JAX appends: row r's operand is
+        the output of row a_src (0 <= a_src < r) or the literal; a row's
+        output is its id where masked in, its resolved a where not."""
+        outs = []
+        for r in range(op.shape[1]):
+            def resolve(lit, src):
+                if not r:
+                    return lit
+                prev = np.stack(outs, 1)[np.arange(P), np.clip(src, 0, r - 1)]
+                return np.where((src >= 0) & (src < r), prev, lit).astype(np.int32)
+
+            ar, br = resolve(a[:, r], a_src[:, r]), resolve(b[:, r], b_src[:, r])
+            jsf, jids = jax_append(jsf, jnp.asarray(mask[:, r]), jnp.asarray(op[:, r]),
+                                   jnp.asarray(ar), jnp.asarray(br), jnp.asarray(imm[:, r]))
+            outs.append(np.where(mask[:, r], np.asarray(jids), ar).astype(np.int32))
+        return jsf, np.stack(outs, 1)
+
+    for case, rows in group_cases(np.random.default_rng(11)).items():
+        jsf = seeded(room=2)
+        tsf = SymFrontier.from_numpy(jsf, "cpu")
+        jsf, jout = jax_group(jsf, *rows)
+        mask, op, a, b, a_src, b_src, imm = rows
+        tsf, tout = append_group(tsf, *(torch.as_tensor(x) for x in (
+            mask, op, a, b, a_src, b_src, imm.astype(np.int64))))
+        # lanes (but the overflowing lane 0) where row 1 repeats a masked-in row 0
+        both = mask[1:, 0] & mask[1:, 1]
+        out["group", case] = (differing(jsf, tsf), bool(np.array_equal(tout.numpy(), jout)),
+                              int(np.asarray(jsf.base.err_code)[0]),
+                              np.asarray(jsf.tape_len) - np.asarray(seeded(room=2).tape_len),
+                              both, jout[1:, 1][both] == jout[1:, 0][both])
+
     out["cuda"] = None
     if torch.cuda.is_available():
         rng = np.random.default_rng(5)
@@ -145,6 +239,18 @@ def test_scalar_operands_broadcast_like_jax(res):
 
 def test_frontier_round_trips_through_numpy(res):
     assert res["round_trip"] == []
+
+
+@pytest.mark.parametrize("case", ["chain", "binop", "duplicate"])
+def test_group_plain_matches_jax_append_sequence(res, case):
+    bad, outs_equal, err0, grown, both, same = res["group", case]
+    assert bad == [] and outs_equal
+    # lane 0 had room for two rows: it overflowed mid-group into one
+    # TAPE_LIMIT trap, as the sequential traps attribute it
+    assert err0 == 8 and grown[0] == 2
+    if case == "duplicate":
+        # row 1 repeats row 0 of its group: a dedup hit, the same id
+        assert both.any() and same.all()
 
 
 @pytest.mark.cuda
