@@ -3,7 +3,7 @@
     python3 chip_smoke.py            # all phases (needs one CUDA device)
     python3 chip_smoke.py --kernels  # build + kernel checks only
     python3 chip_smoke.py --campaign # build + the campaign phase only
-    python3 chip_smoke.py --parent-k6 SRC ...  # also time another tree's K6
+    python3 chip_smoke.py --parent-k6 SRC ...  # also time another tree's K6 and K5
 
 Phases, each fatal on failure:
 
@@ -14,10 +14,13 @@ Phases, each fatal on failure:
    earlier process built from the same sources (the stamp in
    ``kernels/_build``);
 3. kernels: each kernel against its plain PyTorch version on the card
-   (K1-K4 and K6-K9 at the main path's width, P = 2048 lanes; K5 on 64
-   lanes of edge and random operands), seeded random inputs plus edge
-   cases; bit-for-bit equality is required, and K4/K5/K8/K9 also against
-   hashlib / Python's ints. K3's group entry point against R sequential
+   (K1-K4 and K6-K9 at the main path's width, P = 2048 lanes; K5 at the
+   main path's compacted shape, one lane, and on 64 lanes of edge and
+   random operands), seeded random inputs plus edge cases; bit-for-bit
+   equality is required, and K4/K5/K8/K9 also against hashlib / Python's
+   ints. ptxas's register and spill lines for K3, K5, K6 and K7 (K5 must
+   have no stack frame and no spill). K3's group entry point against R
+   sequential
    plain appends on its edge cases (``group_cases``: the SHA3 chain
    masked off mid-chain, the binary op's CONST, CONST and node, rows
    repeating earlier rows of their group, a forged fingerprint
@@ -25,10 +28,14 @@ Phases, each fatal on failure:
    K6 on random tapes holding every op (self and forward references,
    clipped ids) and on the frontier of a real batch just before a sweep;
    with ``--parent-k6 SRC`` also another tree's propagate_sweep.cu (say
-   the parent commit's, unpacked in an ignored directory), built here
-   and timed on the same inputs in turns with this one, and ptxas's
-   register and spill lines for both and for K3; K7 for each policy
-   at fork blocks of 64 lanes and of P. K10 (the concrete EVM step)
+   the parent commit's, unpacked in an ignored directory) and the
+   u256_modexp.cu beside it, built here and timed on the same inputs in
+   turns with this tree's K6 and K5. K7, the whole fork expansion in
+   place through its descriptor, against the plain functional route
+   (``expand_forks_plain``) over every leaf of a P = 2048 frontier (every
+   field random rows, bounded-loops tables the copies hit), for each
+   policy at fork blocks of 64 lanes and of P, defer on and off, with the
+   profiler and the loop bound, and once without either. K10 (the concrete EVM step)
    against ``superstep_plain`` / ``prologue_plain`` / ``dispatch_plain``
    / ``epilogue_plain`` (whose arithmetic and SHA3 are plain PyTorch on
    the card too) over every frontier field, each entry point through its
@@ -84,9 +91,12 @@ Phases, each fatal on failure:
    run resumed mid-transaction from its npz. K10 and K7 must launch on
    every run, and K6 once per feasibility sweep;
 8. profile (measurement only, after the counted runs): the engine's
-   loop stages timed between synchronizations, and a torch.profiler
-   window (16 supersteps of the batch) for the device's busy share and
-   its top kernels;
+   loop stages timed between synchronizations for erc20full and (in its
+   phase-9 run) arith bfs; the device ops of a fork expansion through
+   the loop's entry point (torch.profiler over expansions in a row: at
+   most 3 kernel launches and 10 other device ops an expansion); and a
+   torch.profiler window (16 supersteps of the batch) for the device's
+   busy share and its top kernels;
 10. concrete path, run first after the kernel checks: ``run`` on the
    ERC-20 transfer workload (4096 lanes, default limits, 256 steps), one
    fused K10 launch a superstep in place on fields copied once, the
@@ -1085,7 +1095,10 @@ def modexp_cases(rng):
     cases = [(3, 5, 0), (3, 0, 1), (0, 0, 1), (5, 0, 7), (0, 5, 7), (M, M, M),
              (M, M, M - 1), (2, M, 1 << 255), (2, M, (1 << 255) + 1), (12345, M, 1),
              (M, 2, 3), ((1 << 255) + 1, 3, (1 << 255) - 19), (2, 10, 1 << 200),
-             (9, M, 1 << 100)]
+             (9, M, 1 << 100),
+             # a table build that needs Barrett's third correction
+             (115493631320220615308982905887737156535199793741578743490086311965284643747319,
+              5, 57896044618658097711785492504343953926751871052829057858986680950883660023585)]
     while len(cases) < MODEXP_LANES:
         b, e, m = (int.from_bytes(rng.bytes(32), "big") >> int(rng.integers(0, 256))
                    for _ in range(3))
@@ -1107,25 +1120,46 @@ def modexp_ops(cases) -> int:
     return ops
 
 
-def check_k5(dev, rng):
+def check_k5(dev, rng, parent_lib=None):
+    """K5 at the main path's compacted shape (one lane, a full-width
+    exponent and modulus) and at 64 lanes of edge and random operands,
+    against its plain version and Python's pow; timed at both, and with
+    ``--parent-k6 SRC`` against the parent tree's K5 on the same inputs in
+    turns (parent, this, this, parent)."""
+    import torch
     from mythril_tpu_torch import kernels
     from mythril_tpu_torch.ops import u256
 
     cases = modexp_cases(rng)
+    sizes = {1: [cases[6]], MODEXP_LANES: cases}
+    err, out = 0, {}
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    for n, cs in sizes.items():
+        b, e, m = (words_tensor([c[i] for c in cs], dev) for i in range(3))
+        got = kernels.modexp_u256(b, e, m)
+        err = max(err, max_abs_err(got, u256.modexp_plain(b, e, m)))
+        host = got.cpu().numpy()
+        for i, (x, y, z) in enumerate(cs):
+            if u256.to_int(host[i]) != (pow(x, y, z) if z else 0):
+                fail(f"K5 at {n} lanes: lane {i} disagrees with pow")
+        this = lambda: kernels.modexp_u256(b, e, m)
+        out[n] = dict(ms=time_ms(this, 10), device_ms=kernel_device_ms(this, "modexp_kernel", 5),
+                      bound_ms=modexp_ops(cs) / INT32_OPS_PER_S * 1e3)
+        if parent_lib is not None:
+            old = lambda: kernels.modexp_call(parent_lib.modexp_u256, stream, b, e, m)
+            if not torch.equal(old(), got):
+                fail(f"K5 at {n} lanes: the parent's K5 disagrees")
+            out[n]["turns"] = [time_ms(f, 10) for f in (old, this, this, old)]
+            out[n]["parent_device_ms"] = kernel_device_ms(old, "modexp_kernel", 5)
+        print(f"[3] modexp_u256 at {n} lane(s): bit-exact to modexp_plain and pow; "
+              f"{json.dumps(out[n])}", flush=True)
     b, e, m = (words_tensor([c[i] for c in cases], dev) for i in range(3))
-    out = kernels.modexp_u256(b, e, m)
-    plain = u256.modexp_plain(b, e, m)
-    err = max_abs_err(out, plain)
-    got = out.cpu().numpy()
-    for i, (x, y, z) in enumerate(cases):
-        if u256.to_int(got[i]) != (pow(x, y, z) if z else 0):
-            fail(f"K5 lane {i} disagrees with pow")
-    ms = time_ms(lambda: kernels.modexp_u256(b, e, m), 10)
     plain_ms = time_ms(lambda: u256.modexp_plain(b, e, m), 1)
     nbytes = 4 * MODEXP_LANES * 8 * 8
     return dict(name="modexp_u256", source="mythril_tpu_torch/kernels/csrc/u256_modexp.cu",
-                replaces="mythril_tpu/ops/u256.py:408", max_abs_err=err, ms=ms,
-                plain_ms=plain_ms, nbytes=nbytes, ops=modexp_ops(cases))
+                replaces="mythril_tpu/ops/u256.py:408", max_abs_err=err,
+                ms=out[MODEXP_LANES]["ms"], plain_ms=plain_ms, nbytes=nbytes,
+                ops=modexp_ops(cases))
 
 
 def product_words(rng):
@@ -1348,12 +1382,13 @@ def _sweep_args(sf):
             sf.con_node, sf.con_sign, sf.con_len]
 
 
-def ptxas_builds(parent_src: str):
-    """``--parent-k6 SRC``: build the parent tree's propagate_sweep.cu
-    (SRC, in a copy of that tree's ``csrc/``) and this tree's K6 and K3
-    sources with nvcc and ``-Xptxas=-v`` into a temporary directory, all
-    at once. -> (the parent's library, {build: ptxas's register and spill
-    lines})."""
+def ptxas_builds(parent_src=None):
+    """This tree's K3, K5, K6 and K7 sources and, with ``--parent-k6 SRC``,
+    the parent tree's K6 (SRC, in a copy of that tree's ``csrc/``) and K5
+    (``u256_modexp.cu`` beside it), built with nvcc and ``-Xptxas=-v``
+    into a temporary directory, all at once. ptxas must report no stack
+    frame and no spill for K5. -> ({parent build: its library},
+    {build: ptxas's register and spill lines})."""
     import ctypes
     import tempfile
 
@@ -1362,9 +1397,12 @@ def ptxas_builds(parent_src: str):
     nvcc = kernels._nvcc()
     tmp = tempfile.mkdtemp(prefix="chip_smoke_ptxas_")
     csrc = os.path.join(ROOT, "mythril_tpu_torch", "kernels", "csrc")
-    srcs = {"parent propagate_sweep": os.path.abspath(parent_src),
-            "propagate_sweep": os.path.join(csrc, "propagate_sweep.cu"),
-            "tape_append": os.path.join(csrc, "tape_append.cu")}
+    srcs = {name: os.path.join(csrc, f"{name}.cu")
+            for name in ("propagate_sweep", "tape_append", "u256_modexp", "fork_plan")}
+    if parent_src:
+        srcs["parent propagate_sweep"] = os.path.abspath(parent_src)
+        srcs["parent u256_modexp"] = os.path.join(os.path.dirname(os.path.abspath(parent_src)),
+                                                  "u256_modexp.cu")
     procs = {name: subprocess.Popen(
         [nvcc, "-Xptxas=-v", *kernels.NVCC_FLAGS, "-o",
          os.path.join(tmp, name.replace(" ", "_") + ".so"), src],
@@ -1376,9 +1414,20 @@ def ptxas_builds(parent_src: str):
             fail(f"nvcc {srcs[name]}:\n{out[-3000:]}")
         logs[name] = [ln.strip() for ln in out.splitlines()
                       if "entry function" in ln or "spill" in ln or "Used" in ln]
-    lib = ctypes.CDLL(os.path.join(tmp, "parent_propagate_sweep.so"))
-    kernels.bind_propagate_sweep(lib)
-    return lib, logs
+    frames = [ln for ln in logs["u256_modexp"] if "stack frame" in ln]
+    if not frames or any(not ln.startswith("0 bytes stack frame, 0 bytes spill stores, "
+                                           "0 bytes spill loads") for ln in frames):
+        fail(f"K5: ptxas reports a stack frame or spills: {frames}")
+    libs = {}
+    for name in srcs:
+        if name.startswith("parent "):
+            lib = ctypes.CDLL(os.path.join(tmp, name.replace(" ", "_") + ".so"))
+            if "sweep" in name:
+                kernels.bind_propagate_sweep(lib)
+            else:
+                kernels.bind_modexp(lib)
+            libs[name] = lib
+    return libs, logs
 
 
 def argv_value(flag: str):
@@ -1386,7 +1435,7 @@ def argv_value(flag: str):
     return sys.argv[sys.argv.index(flag) + 1] if flag in sys.argv[:-1] else None
 
 
-def check_k6(dev, rng):
+def check_k6(dev, rng, parent_lib=None):
     """K6 against its plain version on random tapes and on a real
     frontier; timed on both, and with ``--parent-k6 SRC`` against the
     parent tree's K6 on the same inputs in turns (parent, this, this,
@@ -1422,14 +1471,9 @@ def check_k6(dev, rng):
                 kernels.sweep_call(fn, stream, *args)
         return launch
 
-    parent = argv_value("--parent-k6")
-    if parent:
-        lib, logs = ptxas_builds(parent)
-        for name, lines in logs.items():
-            for ln in lines:
-                print(f"[3] ptxas {name}: {ln}", flush=True)
+    if parent_lib is not None:
         for what, sf in tapes.items():
-            this, old = launcher(sf), launcher(sf, lib.propagate_sweep)
+            this, old = launcher(sf), launcher(sf, parent_lib.propagate_sweep)
             turns = [time_ms(f, 10) for f in (old, this, this, old)]
             dev_ms = [kernel_device_ms(f, "sweep_kernel", 5) for f in (old, this)]
             print(f"[3] propagate_sweep {what}, the parent's K6 and this one on the same "
@@ -1458,55 +1502,206 @@ def check_k6(dev, rng):
                 plain_ms=plain_ms, nbytes=nbytes, ops=ops)
 
 
-def fork_inputs(dev, rng, n_con, n_stack, max_code):
+def fork_frontier(dev, rng, P=None, limits=None):
+    """A frontier mid-superstep for K7 at P lanes (default limits, the
+    profiler attached): every lane-axis field seeded random bits, then
+    live and free lanes, fork requests (JUMPI and call-enumeration),
+    depths, parked counters, profiler rows, bounded-loops tables (a third
+    of the lanes already hold the entry their copy will hit, counts up
+    past the bound) and a coverage bitmap. -> (frontier, visited)."""
     import torch
+    from mythril_tpu_torch import kernels
+    from mythril_tpu_torch.config import DEFAULT_LIMITS
+    from mythril_tpu_torch.symbolic import make_sym_frontier
 
-    P = P_MAIN
+    L = limits or DEFAULT_LIMITS
+    P = P or P_MAIN
+    sf = make_sym_frontier(P, L, device=dev)
+    sf = sf.replace(base=sf.base.attach_iprof())
+    g = torch.Generator(device=dev).manual_seed(int(rng.integers(1 << 31)))
+    for path in kernels.fork_rows(sf):
+        t = kernels.fork_field(sf, path)
+        if t.dtype == torch.bool:
+            t.copy_(torch.rand(t.shape, generator=g, device=dev) < 0.5)
+        else:
+            hi = {torch.uint8: 256, torch.int32: 1 << 31}.get(t.dtype, 1 << 32)
+            t.copy_(torch.randint(0, hi, t.shape, generator=g, device=dev, dtype=t.dtype))
+    C, S, LBS = L.max_constraints, L.max_stack, L.loop_slots
     t = lambda x: torch.as_tensor(x, device=dev)
-    return [t(rng.random(P) < 0.6), t(rng.random(P) < 0.7),
-            t(rng.integers(1, n_con + 1, P).astype(np.int32)),
-            t(rng.integers(-2, 3000, P).astype(np.int32)),
-            t(rng.integers(0, 32, P).astype(np.int32)),
-            t(rng.integers(1, 3000, P).astype(np.int32)),
-            t(rng.integers(2, n_stack - 2, P).astype(np.int32)),
-            t(rng.integers(0, 3, P).astype(np.int32)),
-            t(np.where(rng.random(P) < 0.3, rng.integers(-1, n_stack + 2, P), -1)
-              .astype(np.int32)),
-            t(rng.integers(0, 4, P).astype(np.int32)),
-            t(rng.random((32, max_code)) < 0.5)]
+    pc = rng.integers(1, 3000, P).astype(np.int32)
+    dest = rng.integers(-2, 3000, P).astype(np.int32)
+    cid = rng.integers(0, 32, P).astype(np.int32)
+    lb_len = rng.integers(0, LBS + 1, P).astype(np.int32)
+    lb_key = rng.integers(0, 1 << 40, (P, LBS))
+    lb_cnt = rng.integers(0, L.loop_bound + 2, (P, LBS)).astype(np.int32)
+    hit = (rng.random(P) < 0.33) & (lb_len > 0)
+    slot = (rng.random(P) * np.maximum(lb_len, 1)).astype(np.int64)
+    lanes = np.nonzero(hit)[0]
+    lb_key[lanes, slot[lanes]] = ((cid.astype(np.int64) * 32768 + dest) * 32768 + pc - 1)[lanes]
+    b = sf.base
+    base = dict(active=t(rng.random(P) < 0.6), pc=t(pc), contract_id=t(cid),
+                sp=t(rng.integers(2, S - 2, P).astype(np.int32)),
+                error=t(rng.random(P) < 0.05),
+                err_code=t(np.where(rng.random(P) < 0.05, 3, 0).astype(np.int32)),
+                gas_min=t(rng.integers(0, 1 << 40, P)),
+                gas_max=t(rng.integers(1 << 40, 1 << 41, P)),
+                op_hist=t(rng.integers(0, 50, (P, 256)).astype(np.int32)),
+                op_resid=t(rng.integers(0, 9, 256).astype(np.int32)))
+    rest = dict(fork_req=t(rng.random(P) < 0.7),
+                con_len=t(rng.integers(1, C + 1, P).astype(np.int32)),
+                fork_dest=t(dest), dropped_forks=t(rng.integers(0, 3, P).astype(np.int32)),
+                fork_cslot=t(np.where(rng.random(P) < 0.3, rng.integers(-1, S + 2, P), -1)
+                             .astype(np.int32)),
+                fork_cval=t(rng.integers(0, 1 << 32, (P, 8))),
+                call_enum=t(rng.integers(0, 4, P).astype(np.int32)),
+                lb_key=t(lb_key), lb_cnt=t(lb_cnt), lb_len=t(lb_len))
+    for k, v in base.items():
+        getattr(b, k).copy_(v)
+    for k, v in rest.items():
+        getattr(sf, k).copy_(v)
+    return sf, t(rng.random((32, 4096)) < 0.5)
+
+
+def leaf_errs(got, want) -> dict:
+    """max_abs_err of every tensor of two frontiers, by field path."""
+    g, w = tensor_leaves(got), tensor_leaves(want)
+    if set(g) != set(w):
+        return {k: -1 for k in set(g) ^ set(w)}
+    return {k: max_abs_err(g[k], w[k]) for k in w}
+
+
+def restore(dst, src):
+    """Every field K7 writes of ``dst`` set back to ``src``'s, in place."""
+    from mythril_tpu_torch import kernels
+
+    for path in kernels.FORK_EXTRA_PATHS + tuple(kernels.fork_rows(dst)):
+        t = kernels.fork_field(dst, path)
+        if t is not None:
+            t.copy_(kernels.fork_field(src, path))
 
 
 def check_k7(dev, rng):
+    """K7, the whole in-place fork expansion through its descriptor, held
+    field for field (every leaf) to the plain functional route on a
+    P = 2048 frontier, for each policy, fork blocks of 64 lanes and of P,
+    defer on and off, with the profiler and the bounded-loops policy; and
+    once without either. Timed through the descriptor, each expansion on
+    the frontier restored, and on the device alone."""
+    import torch
     from mythril_tpu_torch import kernels
     from mythril_tpu_torch.config import DEFAULT_LIMITS
-    from mythril_tpu_torch.symbolic.engine import fork_plan_plain
+    from mythril_tpu_torch.symbolic.engine import expand_forks_plain, own_fork_fields
 
     L = DEFAULT_LIMITS
-    args = fork_inputs(dev, rng, L.max_constraints, L.max_stack, 4096)
-    err = 0
-    times = {}
-    for policy in kernels.FORK_POLICIES:
-        for block in (64, P_MAIN):
-            for defer in (False, True):
-                kw = dict(block=block, policy=policy, n_con=L.max_constraints,
-                          n_stack=L.max_stack, defer=defer)
-                oi, ob = kernels.fork_plan(*args, **kw)
-                pi, pb = fork_plan_plain(*args, **kw)
-                err = max(err, max_abs_err(oi, pi), max_abs_err(ob, pb))
-            times[policy, block] = time_ms(lambda: kernels.fork_plan(*args, **kw), 20)
-    print("[3] fork_plan ms (policy, block): " + ", ".join(
-        f"{p}/{b} {t:.4f}" for (p, b), t in times.items()), flush=True)
-    kw = dict(block=P_MAIN, policy="weighted", n_con=L.max_constraints, n_stack=L.max_stack,
-              defer=True)
-    plain_ms = time_ms(lambda: fork_plan_plain(*args, **kw), 5)
-    # bytes: per lane 2 flags and 8 int32 in, 9 int32 and 4 flags out;
-    # operations: the bitonic network's compare-exchanges (~4 each)
+    sf, vis = fork_frontier(dev, rng)
+    k7 = kernels.ForkExpand.on_card(dev)
+    err, copies = 0, []
+    cases = [(policy, block, defer, L.loop_bound, True) for policy in kernels.FORK_POLICIES
+             for block in (64, P_MAIN) for defer in (False, True)]
+    cases.append(("fifo", P_MAIN, False, 0, False))
+    for policy, block, defer, lb, iprof in cases:
+        src = sf if iprof else sf.replace(base=sf.base.replace(op_hist=None, op_resid=None))
+        got = k7.expand(own_fork_fields(src), block=block, policy=policy, defer=defer,
+                        loop_bound=lb, visited=vis)
+        copies.append(int(k7.count[0]))
+        errs = leaf_errs(got, expand_forks_plain(src, lb, block, policy, defer, vis))
+        bad = {k: v for k, v in errs.items() if v}
+        if bad:
+            print(f"[3] fork_plan {policy}/{block}/defer={defer}/loop_bound={lb}/iprof={iprof}: "
+                  f"leaves differ from the plain route: {bad}", flush=True)
+        err = max(err, *errs.values())
+    print(f"[3] fork_plan: {len(cases)} cases, {len(tensor_leaves(sf))} leaves each, copies "
+          f"{min(copies)}-{max(copies)}, every leaf equal to the plain functional route"
+          if not err else "[3] fork_plan: leaves differ", flush=True)
+    kw = dict(block=P_MAIN, policy="weighted", defer=True, loop_bound=L.loop_bound, visited=vis)
+    own = k7.bind(own_fork_fields(sf))
+
+    def expand():
+        k7.expand(own, **kw)
+
+    times = []
+    for _ in range(11):
+        restore(own, sf)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        expand()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    ms = sum(times[1:]) / len(times[1:])
+    n_copies = int(k7.count[0])
+
+    def restored():
+        restore(own, sf)
+        expand()
+
+    dev_ms = kernels_device_ms(restored, ("fork_plan", "fork_copy", "fork_fix"), 5)
+    plain_ms = time_ms(lambda: expand_forks_plain(sf, L.loop_bound, P_MAIN, "weighted", True,
+                                                  vis), 3)
+    row = sum(kernels.fork_field(sf, p)[0].nbytes for p in k7.rows) + sf.base.op_hist[0].nbytes
+    print(f"[3] fork_plan (weighted, block P, defer, loop bound, profiler): {ms:.4f} ms an "
+          f"expansion through the descriptor, device {json.dumps(dev_ms)}; {n_copies} copies of "
+          f"{row} B rows; plain functional route {plain_ms:.3f} ms", flush=True)
+    # bitonic compare-exchanges (~4 operations each)
     lg = P_MAIN.bit_length() - 1
     ops = (P_MAIN // 2) * lg * (lg + 1) // 2 * 4
     return dict(name="fork_plan", source="mythril_tpu_torch/kernels/csrc/fork_plan.cu",
-                replaces="mythril_tpu/symbolic/engine.py:2502", max_abs_err=err,
-                ms=times["weighted", P_MAIN], plain_ms=plain_ms,
-                nbytes=P_MAIN * (2 + 8 * 4 + 9 * 4 + 4), ops=ops)
+                replaces="mythril_tpu/symbolic/engine.py:2605", max_abs_err=err, ms=ms,
+                plain_ms=plain_ms, nbytes=P_MAIN * (2 + 8 * 4 + 9 * 4 + 4) + 2 * n_copies * row,
+                ops=ops)
+
+
+def expansion_ops(dev) -> dict:
+    """Phase 8: device ops a fork expansion makes through the loop's entry
+    point (``expand_forks_inplace`` with the loop's descriptor bound),
+    from a torch.profiler trace of several expansions in a row on one
+    owned P = 2048 frontier: K7's kernel launches and every other device
+    op, each op name counted at most ceil(count / expansions) times an
+    expansion."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    from mythril_tpu_torch import kernels
+    from mythril_tpu_torch.config import DEFAULT_LIMITS
+    from mythril_tpu_torch.symbolic.engine import expand_forks_inplace, own_fork_fields
+
+    sf, vis = fork_frontier(dev, np.random.default_rng(20261019))
+    k7 = kernels.ForkExpand.on_card(dev)
+    own = own_fork_fields(sf)
+    n = 16
+    args = (DEFAULT_LIMITS.loop_bound, 64, "coverage", True, vis, k7)
+    own = expand_forks_inplace(own, *args)
+    torch.cuda.synchronize()
+    # the profiler's first steps are warm-up (a trace without them missed
+    # the first expansions' launches), one expansion a step; a trace that
+    # comes back with no device activity at all (one taken late in a long
+    # process once did) is taken again
+    warm = 2
+    for attempt in range(1, 4):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=warm, active=n, repeat=1)) as prof:
+            for _ in range(warm + n):
+                own = expand_forks_inplace(own, *args)
+                torch.cuda.synchronize()
+                prof.step()
+        # device ops by name over the n traced expansions (the step ranges
+        # are host-side); a name seen at most n times runs at most once an
+        # expansion (the trace can miss an event at the window's start)
+        ops = {e.key: e.count for e in prof.key_averages()
+               if device_us(e) > 0 and not e.key.startswith("ProfilerStep")}
+        per = {k: -(-c // n) for k, c in ops.items()}
+        ours = sum(v for k, v in per.items() if k.startswith("fork_") and "_kernel" in k)
+        if ours:
+            break
+    out = {"launches": ours, "other": sum(per.values()) - ours, "ops": ops, "trace": attempt}
+    print(f"[8] fork expansion (the loop's entry point, P = {P_MAIN}, {n} in a row): "
+          f"{json.dumps(out)}", flush=True)
+    if not ours:
+        fail("fork expansion: three traces showed no launch of K7")
+    if out["launches"] > 3 or out["other"] > 10:
+        fail(f"fork expansion: {out['launches']} kernel launches and {out['other']} other device "
+             "ops an expansion (at most 3 and 10)")
+    return out
 
 
 # K10's lanes at the concrete path's width (bench.py's P)
@@ -2037,9 +2232,15 @@ def main() -> int:
         return 0
 
     # phase 3: kernels against their plain versions
+    parents, logs = ptxas_builds(argv_value("--parent-k6"))
+    for name, lines in logs.items():
+        for ln in lines:
+            print(f"[3] ptxas {name}: {ln}", flush=True)
     rng = np.random.default_rng(20261017)
     results = [check_k1(dev, rng), check_k2(dev, rng), check_k3(dev, rng),
-               check_k3_group(dev, np.random.default_rng(20261018)), check_k4(dev, rng), check_k5(dev, rng), check_k6(dev, rng),
+               check_k3_group(dev, np.random.default_rng(20261018)), check_k4(dev, rng),
+               check_k5(dev, rng, parents.get("parent u256_modexp")),
+               check_k6(dev, rng, parents.get("parent propagate_sweep")),
                check_k7(dev, rng), check_k8(dev, rng), *check_k9(dev, rng),
                *check_k10(dev, rng)]
     for r in results:
@@ -2048,6 +2249,9 @@ def main() -> int:
                  f"(max_abs_err {r['max_abs_err']})")
         print(f"[3] {r['name']}: bit-exact; {r['ms']:.4f} ms kernel, "
               f"{r['plain_ms']:.3f} ms plain", flush=True)
+    # phase 8's trace of a fork expansion, taken here, early in the process:
+    # a trace late in a long process once came back empty
+    expansion_ops(dev)
     if "--kernels" in sys.argv:
         launches = {}
     else:
@@ -2561,14 +2765,16 @@ def run_policies(dev) -> dict:
     arith = fixture_path("torch_port", "arith.bin-runtime")
     for strategy in STRATEGIES:
         # the bfs run, at the CLI defaults, also keeps the instruction
-        # profile (its report is the same with or without it); the other
-        # strategies run at ARITH_SHORT_ARGS' depth
+        # profile (its report is the same with or without it) and times
+        # the engine's loop stages between synchronizations (phase 8's
+        # arith numbers); the other strategies run at ARITH_SHORT_ARGS' depth
         iprof = ["--enable-iprof"] if strategy == "bfs" else []
         depth = [] if strategy == "bfs" else list(ARITH_SHORT_ARGS)
         pin = f"arith_{strategy}.json" if strategy == "bfs" else f"arith_{strategy}_short.json"
-        (err, stats), counts = counted(lambda: run_cli(
-            f"arith --strategy {strategy} {' '.join(iprof + depth)}",
-            ["-f", arith, "--strategy", strategy, *iprof, *depth], pin=pin, phase="9"))
+        with timed_stages(f"arith --strategy {strategy}" if strategy == "bfs" else None):
+            (err, stats), counts = counted(lambda: run_cli(
+                f"arith --strategy {strategy} {' '.join(iprof + depth)}",
+                ["-f", arith, "--strategy", strategy, *iprof, *depth], pin=pin, phase="9"))
         require_launches(f"arith {strategy}", counts, stats["sweeps"], ARITH_KERNELS)
         add(counts)
         if iprof:
@@ -2615,30 +2821,47 @@ def run_policies(dev) -> dict:
     return launches
 
 
+@contextlib.contextmanager
+def timed_stages(what):
+    """Time the engine's loop stages (superstep, forks, propagation)
+    between device synchronizations over the block and print them as
+    phase 8's numbers for ``what``; None: no timing."""
+    from mythril_tpu_torch.symbolic.engine import ENGINE_STATS
+
+    if what is None:
+        yield
+        return
+    ENGINE_STATS.update(timing=True, superstep_s=0.0, forks_s=0.0, propagate_s=0.0)
+    steps0 = ENGINE_STATS["supersteps"]
+    t0 = time.monotonic()
+    try:
+        yield
+    finally:
+        ENGINE_STATS["timing"] = False
+    stages = {k: round(ENGINE_STATS[k], 3) for k in ("superstep_s", "forks_s", "propagate_s")}
+    print(f"[8] {what} engine stages (synchronized): {json.dumps(stages)}, "
+          f"{time.monotonic() - t0:.2f} s, {ENGINE_STATS['supersteps'] - steps0} supersteps",
+          flush=True)
+
+
 def profile_paths(dev, codes, names) -> None:
     """Phase 8, a measurement mode outside the counted runs: (a) the
     analyze engine of erc20full with each loop stage timed between device
-    synchronizations; (b) a torch.profiler window over the batch's first
-    16 supersteps for the device's busy share and the top kernels (the
-    profiler's event processing is slow, so the window stays short)."""
+    synchronizations (arith bfs's are timed in its phase-9 run, and the
+    device ops of a fork expansion traced after phase 3); (b) a
+    torch.profiler window over the batch's first 16 supersteps for the
+    device's busy share and the top kernels (the profiler's event
+    processing is slow, so the window stays short)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from mythril_tpu_torch.analysis import SymExecWrapper
     from mythril_tpu_torch.config import DEFAULT_LIMITS
-    from mythril_tpu_torch.symbolic.engine import ENGINE_STATS
 
-    ENGINE_STATS.update(timing=True, superstep_s=0.0, forks_s=0.0, propagate_s=0.0)
-    steps0 = ENGINE_STATS["supersteps"]
-    t0 = time.monotonic()
-    SymExecWrapper([realworld("erc20full")], limits=DEFAULT_LIMITS, lanes_per_contract=64,
-                   max_steps=512, transaction_count=2, device=dev)
-    torch.cuda.synchronize()
-    stages = {k: round(ENGINE_STATS[k], 3) for k in ("superstep_s", "forks_s", "propagate_s")}
-    ENGINE_STATS["timing"] = False
-    print(f"[8] erc20full engine stages (synchronized): {json.dumps(stages)}, "
-          f"engine {time.monotonic() - t0:.2f} s, "
-          f"{ENGINE_STATS['supersteps'] - steps0} supersteps", flush=True)
+    with timed_stages("erc20full"):
+        SymExecWrapper([realworld("erc20full")], limits=DEFAULT_LIMITS, lanes_per_contract=64,
+                       max_steps=512, transaction_count=2, device=dev)
+        torch.cuda.synchronize()
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.monotonic()

@@ -7,9 +7,11 @@ K3     ``csrc/tape_append.cu``     ``tape_append``, ``tape_append_group`` —
                                    hash-consed tape append, one row or R
                                    rows a lane in one launch
 K4     ``csrc/sha256.cu``          ``sha256`` — SHA-256 (precompile 0x2)
-K5     ``csrc/u256_modexp.cu``     ``modexp_u256`` — MODEXP (precompile 0x5)
+K5     ``csrc/u256_modexp.cu``     ``modexp_u256`` — MODEXP (precompile 0x5),
+                                   a quarter-warp per lane
 K6     ``csrc/propagate_sweep.cu`` ``propagate_sweep`` — feasibility sweep
-K7     ``csrc/fork_plan.cu``       ``fork_plan`` — policy-keyed fork planning
+K7     ``csrc/fork_plan.cu``       ``fork_plan`` — the whole fork expansion
+                                   (plan, row copy, fix-ups), in place
 K8     ``csrc/u256_mul.cu``        ``mul_u256`` — MUL / wide product
 K9     ``csrc/u256_mulmod_exp.cu`` ``mod_wide_u256``, ``exp_u256`` — ADDMOD /
                                    MULMOD remainder, EXP
@@ -22,7 +24,9 @@ K10    ``csrc/evm_step.cu``        ``evm_prologue``, ``evm_dispatch``,
 Barrett reduction that K1, K5, K6, K8, K9 and K10 share; ``csrc/keccak.cuh``
 the permutation K2 and K10 share; ``csrc/evm_step.cuh`` K10's per-lane
 body, ``csrc/tape_append.cuh`` K3's and ``csrc/propagate.cuh`` K6's
-per-warp bodies (the CPU tests build all three as host C++).
+per-warp bodies, ``csrc/modexp.cuh`` K5's quarter-warp body and
+``csrc/fork_expand.cuh`` K7's per-lane bodies (the CPU tests build all of
+them as host C++).
 
 K3 and K6 run a warp per frontier lane. K3's warp scans the lane's
 fingerprints 128 at a time and appends each row in place; its group
@@ -36,6 +40,9 @@ in rounds as deep as the window's dependency chain, stages their domains
 in shared memory and commits them with coalesced stores; its bound is
 the bytes of the nodes' rows and domains, and what stays serial is a
 window's chain and the windows of a lane.
+K5 spreads a lane over the eight threads of a quarter-warp, a limb each.
+K7 is the whole fork expansion, in place on the fields the loop owns:
+the plan, each copy lane's rows from its source, and the fix-ups.
 
 Each source has a plain C interface. :func:`build` compiles them with
 ``nvcc`` — one process per source, all started together — into shared
@@ -52,7 +59,8 @@ if the launch returned a CUDA error, and adds one to its ``launches``
 counter. K10 works in place on frontier fields its caller owns, through
 a launch descriptor (:class:`EvmStep`) that a loop builds once and that
 re-marshals only the tensors that changed since its last launch; K3 on
-the tape the same way (:class:`TapeAppend`). The
+the tape the same way (:class:`TapeAppend`), and K7 on every lane-axis
+field (:class:`ForkExpand`). The
 plain PyTorch versions live beside their callers (``ops/u256.py``, ``ops/keccak.py``, ``ops/sha256.py``,
 ``symbolic/engine.py``, ``symbolic/propagate.py``,
 ``core/interpreter.py``); those callers route a CPU tensor to the plain
@@ -227,16 +235,15 @@ def build(verbose: bool = False) -> float:
         libs["keccak256"].keccak256.argtypes = [vp, vp, vp, ci, ci, vp]
         bind_tape_append(libs["tape_append"])
         libs["sha256"].sha256.argtypes = [vp, vp, vp, ci, ci, vp]
-        libs["u256_modexp"].modexp_u256.argtypes = [vp, vp, vp, vp, ci, vp]
+        bind_modexp(libs["u256_modexp"])
         bind_propagate_sweep(libs["propagate_sweep"])
-        libs["fork_plan"].fork_plan.argtypes = [vp] * 13 + [ci] * 8 + [vp]
+        bind_fork_expand(libs["fork_plan"])
         libs["u256_mul"].u256_mul.argtypes = [vp, vp, vp, ci, ci, vp]
         libs["u256_mulmod_exp"].u256_mod_wide.argtypes = [vp, vp, vp, ci, vp]
         libs["u256_mulmod_exp"].u256_exp.argtypes = [vp, vp, vp, ci, vp]
         bind_evm_step(libs["evm_step"])
         for lib, fn in (("u256_divmod", "divmod_u256"), ("keccak256", "keccak256"),
-                        ("sha256", "sha256"), ("u256_modexp", "modexp_u256"),
-                        ("fork_plan", "fork_plan"),
+                        ("sha256", "sha256"),
                         ("u256_mul", "u256_mul"), ("u256_mulmod_exp", "u256_mod_wide"),
                         ("u256_mulmod_exp", "u256_exp")):
             getattr(libs[lib], fn).restype = ci
@@ -497,18 +504,37 @@ def sha256(data: torch.Tensor, length: torch.Tensor):
     return out
 
 
+def bind_modexp(lib):
+    """Argument and result types of K5's entry point on a loaded library
+    (the nvcc build here; the CPU tests' host build of the same body)."""
+    vp = ctypes.c_void_p
+    lib.modexp_u256.argtypes = [vp, vp, vp, vp, ctypes.c_int, vp]
+    lib.modexp_u256.restype = ctypes.c_int
+
+
+def modexp_call(fn, stream: int, base, e, m):
+    """One launch of K5's C entry point ``fn`` (the nvcc build's; the CPU
+    tests pass a host build's) on int64 carrier words ``[..., 8]``, each
+    checked to lie on ``base``'s device -> base ** e mod m."""
+    dev = base.device
+    for t, what in ((base, "base"), (e, "e"), (m, "m")):
+        if t.device != dev:
+            raise ValueError(f"modexp_u256 {what}: expected a tensor on {dev}, got {t.device}")
+        _check_layout(t, f"modexp_u256 {what}", torch.int64, base.shape)
+    if base.shape[-1] != 8:
+        raise ValueError("modexp_u256: last dim must be 8 limbs")
+    out = torch.empty_like(base)
+    _raise_on(fn(base.data_ptr(), e.data_ptr(), m.data_ptr(), out.data_ptr(),
+                 base.numel() // 8, stream), "modexp_u256")
+    return out
+
+
 @_launch_counter
 def modexp_u256(base: torch.Tensor, e: torch.Tensor, m: torch.Tensor):
     """K5 on int64 carrier words ``[..., 8]`` -> base ** e mod m."""
     dev = base.device
-    for t, what in ((base, "base"), (e, "e"), (m, "m")):
-        _check(t, f"modexp_u256 {what}", torch.int64, base.shape, dev)
-    if base.shape[-1] != 8:
-        raise ValueError("modexp_u256: last dim must be 8 limbs")
-    out = torch.empty_like(base)
-    err = _lib("u256_modexp").modexp_u256(base.data_ptr(), e.data_ptr(), m.data_ptr(),
-                                          out.data_ptr(), base.numel() // 8, _stream(dev))
-    _raise_on(err, "modexp_u256")
+    _check(base, "modexp_u256 base", torch.int64, base.shape, dev)
+    out = modexp_call(_lib("u256_modexp").modexp_u256, _stream(dev), base, e, m)
     modexp_u256.launches += 1
     return out
 
@@ -609,57 +635,278 @@ def propagate_sweep(tape_op, tape_a, tape_b, tape_imm, tape_len, prop_len,
     return infeasible
 
 
-# fork policies as K7 numbers them (csrc/fork_plan.cu)
+# fork policies as K7 numbers them (csrc/fork_expand.cuh)
 FORK_POLICIES = ("fifo", "shallow", "deep", "random", "weighted", "coverage", "beam")
+# The fields the plan and the fix-ups name, first in K7's field table in
+# this order (``k7::F_*`` in csrc/fork_expand.cuh): (path, dtype, shape);
+# every other lane-axis field of the frontier follows, in field order.
+FORK_NAMED = (
+    ("base.active", _B, ("P",)), ("fork_req", _B, ("P",)), ("con_len", _I32, ("P",)),
+    ("fork_dest", _I32, ("P",)), ("base.contract_id", _I32, ("P",)), ("base.pc", _I32, ("P",)),
+    ("base.sp", _I32, ("P",)), ("dropped_forks", _I32, ("P",)), ("fork_cslot", _I32, ("P",)),
+    ("call_enum", _I32, ("P",)), ("fork_cval", _I64, ("P", 8)),
+    ("base.stack", _I64, ("P", "S", 8)), ("stack_sym", _I32, ("P", "S")),
+    ("con_sign", _B, ("P", "C")), ("base.gas_min", _I64, ("P",)),
+    ("base.gas_max", _I64, ("P",)), ("base.error", _B, ("P",)), ("base.err_code", _I32, ("P",)),
+    ("lb_key", _I64, ("P", "LBS")), ("lb_cnt", _I32, ("P", "LBS")), ("lb_len", _I32, ("P",)))
+# the pointers before the fields (``k7::X_*``): the profiler's rows, its
+# sidecar and the run total of dropped forks are written in place too;
+# the plan's outputs, the copy list and its length are the descriptor's;
+# the coverage bitmap comes with each call
+FORK_EXTRA = (("base.op_hist", _I32, ("P", 256)), ("base.op_resid", _I32, (256,)),
+              ("dropped_total", _I32, ()))
+FORK_EXTRA_PATHS = tuple(p for p, *_ in FORK_EXTRA)
+_X_OUT_I, _X_OUT_B, _X_LIST, _X_COUNT, _X_VISITED, _N_EXTRA = range(3, 9)
+(_I_P, _I_B, _I_POLICY, _I_C, _I_S, _I_LBS, _I_VC, _I_VM, _I_DEFER, _I_LOOP_BOUND, _I_TRAP,
+ _I_N_FIELDS, _N_INTS) = range(13)
+# ``k7::MAX_FIELDS``, and the largest fork block the plan's block sorts
+FORK_MAX_FIELDS = 192
+FORK_MAX_BLOCK = 8192
+# fields that are not rows of the lane axis: run totals and the sidecar
+_NOT_ROWS = frozenset(("base", "op_hist", "op_resid", "killed_total", "dropped_total"))
 
 
-def fork_plan_smem_bytes(B: int) -> int:
-    """Dynamic shared memory K7 needs for a fork block of B lanes."""
-    Bp = 1 << max(0, (B - 1).bit_length())
-    return 4 * (Bp + 2 * B + min(Bp, 1024))
+def bind_fork_expand(lib):
+    """Argument and result types of K7's entry point on a loaded library
+    (the nvcc build here; the CPU tests' host build of the same bodies)."""
+    lib.fork_expand.argtypes = [ctypes.c_void_p] * 3
+    lib.fork_expand.restype = ctypes.c_int
+
+
+def fork_field(sf, path):
+    """The field of ``sf`` at ``path`` (``"base.pc"``, ``"fork_req"``)."""
+    owner, _, name = path.rpartition(".")
+    return (sf.base if owner else sf).__dict__[name]
+
+
+def fork_rows(sf):
+    """The paths of every lane-axis field a fork expansion copies rows of,
+    in K7's table order: ``FORK_NAMED`` first, then the rest in field
+    order (the profiler's rows apart: a copy zeroes its row)."""
+    import dataclasses
+
+    named = [p for p, *_ in FORK_NAMED]
+    rest = [f"base.{f.name}" for f in dataclasses.fields(sf.base) if f.name not in _NOT_ROWS]
+    rest += [f.name for f in dataclasses.fields(sf) if f.name not in _NOT_ROWS]
+    return named + [p for p in rest if p not in named]
+
+
+class ForkExpand:
+    """K7's launch descriptor: the pointers and row bytes of every field a
+    fork expansion writes, marshaled for a loop over one frontier and kept
+    up to date from expansion to expansion.
+
+    Ownership rule: K7 writes in place on every lane-axis field, so its
+    caller owns them all (``sym_run`` copies them once on entry,
+    ``symbolic.engine.own_loop_fields``; the functional ``expand_forks``
+    copies the frontier first). :meth:`bind` compares each field's tensor
+    with the one its slot holds, by object, and only for the tensors that
+    changed checks device, dtype and shape, makes a non-contiguous one (an
+    expanded view a handler handed over) contiguous, once, and checks that
+    its memory overlaps no other slot's: two fields that share memory
+    raise, naming both. It holds the tensors by weak reference, so a field
+    the loop replaced is freed as it was without the descriptor.
+
+    On the card :meth:`expand` is one checked C call: the plan, the row
+    copy and the fix-ups (csrc/fork_plan.cu). With no library (a CPU
+    frontier) the descriptor only binds: the engine's plain in-place route
+    does the work."""
+
+    def __init__(self, lib, stream: int, device):
+        self.fn = lib.fork_expand if lib is not None else None
+        self.stream, self.device = stream, _device(device)
+        self._ptrs = (ctypes.c_uint64 * (_N_EXTRA + FORK_MAX_FIELDS))()
+        self._ints = (ctypes.c_int32 * (_N_INTS + FORK_MAX_FIELDS))()
+        self._c_ptrs = ctypes.cast(self._ptrs, ctypes.c_void_p)
+        self._c_ints = ctypes.cast(self._ints, ctypes.c_void_p)
+        self.paths = None
+        self.out_i = self.out_b = self.list = self.count = None
+        #: slots checked and re-marshaled so far
+        self.refreshed = 0
+
+    @classmethod
+    def on_card(cls, device) -> "ForkExpand":
+        """A descriptor for the nvcc build on ``device``'s current stream."""
+        dev = torch.device(device)
+        if dev.type != "cuda":
+            raise ValueError(f"K7: expected a CUDA tensor, got one on {dev}")
+        return cls(_lib("fork_plan"), _stream(dev), dev)
+
+    @property
+    def rows(self):
+        """The paths of the fields whose rows a copy takes, in table order."""
+        return self.paths[len(FORK_EXTRA):]
+
+    @classmethod
+    def for_frontier(cls, sf) -> "ForkExpand":
+        """The card's descriptor for a frontier on the card, else one that
+        only binds (the plain route's ownership checks)."""
+        dev = sf.base.pc.device
+        return cls.on_card(dev) if dev.type == "cuda" else cls(None, 0, dev)
+
+    def _layout(self, sf):
+        """Forget every slot and take the layout of ``sf``: its field paths,
+        the named fields' dims and the plan's buffers."""
+        from ..core.frontier import Trap
+
+        paths = fork_rows(sf)
+        if len(paths) > FORK_MAX_FIELDS:
+            raise ValueError(f"fork_plan: {len(paths)} lane-axis fields, more than "
+                             f"{FORK_MAX_FIELDS}")
+        b = sf.base
+        P = b.pc.shape[0]
+        self.dims = dict(P=P, S=b.stack.shape[1], C=sf.con_sign.shape[1],
+                         LBS=sf.lb_key.shape[1])
+        self.paths = list(FORK_EXTRA_PATHS) + paths
+        n = len(self.paths)
+        self._shapes = [None] * n
+        for i, (_, dtype, shape) in enumerate(FORK_EXTRA + FORK_NAMED):
+            self._shapes[i] = (dtype, tuple(self.dims.get(d, d) for d in shape))
+        self._held = [_DEAD] * n
+        self._lo, self._hi, self._skey = [0] * n, [0] * n, [0] * n
+        self._on = {}  # storage -> the slots on it
+        self._ptrs[:] = [0] * len(self._ptrs)
+        self._ints[:] = [0] * len(self._ints)
+        for k, v in ((_I_P, P), (_I_C, self.dims["C"]), (_I_S, self.dims["S"]),
+                     (_I_LBS, self.dims["LBS"]), (_I_TRAP, Trap.LOOP_BOUND),
+                     (_I_N_FIELDS, len(paths))):
+            self._ints[k] = v
+        if self.fn is None:  # binds only: the plain route plans for itself
+            return
+        dev = self.device
+        self.out_i = torch.zeros((9, P), dtype=_I32, device=dev)
+        self.out_b = torch.zeros((4, P), dtype=_B, device=dev)
+        self.list = torch.zeros(P, dtype=_I32, device=dev)
+        self.count = torch.zeros(1, dtype=_I32, device=dev)
+        for k, t in ((_X_OUT_I, self.out_i), (_X_OUT_B, self.out_b), (_X_LIST, self.list),
+                     (_X_COUNT, self.count)):
+            self._ptrs[k] = t.data_ptr()
+
+    def _release(self, i: int):
+        key = self._skey[i]
+        if key:
+            on = self._on[key]
+            on.remove(i)
+            if not on:
+                del self._on[key]
+            self._skey[i] = 0
+
+    def _set(self, i: int, t):
+        """Check ``t`` against slot ``i`` (released) and point the slot at it;
+        its byte range must overlap no other slot's on its storage."""
+        path = self.paths[i]
+        self._held[i] = _DEAD if t is None else weakref.ref(t)
+        self.refreshed += 1
+        slot = i if i < len(FORK_EXTRA) else _N_EXTRA + i - len(FORK_EXTRA)
+        if t is None:
+            if path not in ("base.op_hist", "base.op_resid"):
+                raise ValueError(f"fork_plan: {path} is required")
+            self._ptrs[slot] = self._lo[i] = self._hi[i] = 0
+            return
+        if t.device != self.device:
+            raise ValueError(f"fork_plan {path}: expected a tensor on {self.device}, "
+                             f"got {t.device}")
+        want = self._shapes[i]
+        if want is None:  # a row field: its lanes, then what it was at the layout
+            if t.dim() == 0 or t.shape[0] != self.dims["P"]:
+                raise ValueError(f"fork_plan {path}: expected {self.dims['P']} lanes, got "
+                                 f"shape {tuple(t.shape)}")
+            self._shapes[i] = want = (t.dtype, tuple(t.shape))
+        _check_layout(t, f"fork_plan {path}", *want)
+        p, n = t.data_ptr(), t.nbytes
+        self._ptrs[slot] = p
+        if i >= len(FORK_EXTRA):
+            self._ints[_N_INTS + i - len(FORK_EXTRA)] = n // self.dims["P"]
+        self._lo[i], self._hi[i] = p, p + n
+        if not n:
+            return
+        key = t.untyped_storage().data_ptr()
+        for j in self._on.get(key, ()):
+            if self._lo[j] < p + n and self._hi[j] > p:
+                raise ValueError(f"fork_plan: {self.paths[j]} and {path} share memory, and "
+                                 "K7 writes both in place")
+        self._on.setdefault(key, []).append(i)
+        self._skey[i] = key
+
+    def bind(self, sf):
+        """Point the descriptor at the fields of ``sf``; -> ``sf``, with a
+        contiguous copy of any field that was not contiguous. A frontier of
+        another layout (lanes, or a field's shape or dtype) is marshaled
+        anew."""
+        if self.paths is None or sf.base.pc.shape[0] != self.dims["P"]:
+            self._layout(sf)
+        try:
+            return self._bind(sf)
+        except ValueError:
+            self._layout(sf)
+            return self._bind(sf)
+
+    def _bind(self, sf):
+        held, todo = self._held, []
+        for i, path in enumerate(self.paths):
+            t = fork_field(sf, path)
+            if t is not held[i]():
+                todo.append((i, t))
+        if not todo:
+            return sf
+        fixed = {}
+        for i, t in todo:
+            if t is not None and not t.is_contiguous():
+                t = t.contiguous()
+                fixed[self.paths[i]] = t
+            self._release(i)
+        for i, t in todo:
+            self._set(i, fixed.get(self.paths[i], t))
+        if fixed:
+            base = {k[5:]: v for k, v in fixed.items() if k.startswith("base.")}
+            sf = sf.replace(base=sf.base.replace(**base),
+                            **{k: v for k, v in fixed.items() if not k.startswith("base.")})
+        return sf
+
+    def expand(self, sf, *, block: int, policy: str, defer: bool, loop_bound: int = 0,
+               visited=None):
+        """One fork expansion in place on ``sf``'s fields, which the caller
+        owns: K7's plan, row copy and fix-ups. -> ``sf`` (as :meth:`bind`
+        returns it)."""
+        if self.fn is None:
+            raise ValueError(f"K7: expected a CUDA tensor, got one on {self.device}")
+        sf = self.bind(sf)
+        P = self.dims["P"]
+        if block <= 0 or P % block:
+            raise ValueError(f"fork_plan: fork block {block} must divide P={P}")
+        if block > FORK_MAX_BLOCK:
+            raise ValueError(f"fork_plan: a fork block of {block} lanes is more than the "
+                             f"{FORK_MAX_BLOCK} one plan block sorts")
+        vc = vm = 0
+        vptr = 0
+        if visited is not None:
+            vc, vm = visited.shape
+            if visited.device != self.device:
+                raise ValueError(f"fork_plan visited: expected a tensor on {self.device}, "
+                                 f"got {visited.device}")
+            _check_layout(visited, "fork_plan visited", _B, (vc, vm))
+            vptr = visited.data_ptr()
+        ints = self._ints
+        ints[_I_B], ints[_I_POLICY], ints[_I_DEFER] = block, FORK_POLICIES.index(policy), int(defer)
+        ints[_I_LOOP_BOUND], ints[_I_VC], ints[_I_VM] = loop_bound, vc, vm
+        self._ptrs[_X_VISITED] = vptr
+        _raise_on(self.fn(self._c_ptrs, self._c_ints, self.stream), "fork_plan")
+        fork_plan.launches += 1
+        return sf
 
 
 @_launch_counter
-def fork_plan(active, fork_req, con_len, fork_dest, contract_id, pc, sp, dropped_forks,
-              fork_cslot, call_enum, visited, *, block: int, policy: str, n_con: int,
-              n_stack: int, defer: bool):
-    """K7: the fork map and the per-lane fix-ups of ``expand_forks`` for
-    every fork block of ``block`` lanes. ``visited`` is the coverage
-    bitmap ``bool[C, MC]`` or None. Returns (``int32[9, P]``: src, slot,
-    pc, sp, con_len, last sign index, stack slot, call_enum, dropped;
-    ``bool[4, P]``: is_copy, fork_req, starved, backward copy)."""
-    dev = active.device
-    P = active.shape[0]
-    if block <= 0 or P % block:
-        raise ValueError(f"fork_plan: fork block {block} must divide P={P}")
-    if fork_plan_smem_bytes(block) > MAX_SMEM:
-        raise ValueError(f"fork_plan: a fork block of {block} lanes needs "
-                         f"{fork_plan_smem_bytes(block)} bytes of shared memory, more "
-                         f"than the {MAX_SMEM} one block can hold")
-    _check(active, "fork_plan active", torch.bool, (P,), dev)
-    _check(fork_req, "fork_plan fork_req", torch.bool, (P,), dev)
-    for t, what in ((con_len, "con_len"), (fork_dest, "fork_dest"),
-                    (contract_id, "contract_id"), (pc, "pc"), (sp, "sp"),
-                    (dropped_forks, "dropped_forks"), (fork_cslot, "fork_cslot"),
-                    (call_enum, "call_enum")):
-        _check(t, f"fork_plan {what}", torch.int32, (P,), dev)
-    vc = vm = 0
-    vptr = None
-    if visited is not None:
-        vc, vm = visited.shape
-        _check(visited, "fork_plan visited", torch.bool, (vc, vm), dev)
-        vptr = visited.data_ptr()
-    out_i = torch.empty((9, P), dtype=torch.int32, device=dev)
-    out_b = torch.empty((4, P), dtype=torch.bool, device=dev)
-    err = _lib("fork_plan").fork_plan(
-        active.data_ptr(), fork_req.data_ptr(), con_len.data_ptr(), fork_dest.data_ptr(),
-        contract_id.data_ptr(), pc.data_ptr(), sp.data_ptr(), dropped_forks.data_ptr(),
-        fork_cslot.data_ptr(), call_enum.data_ptr(), vptr, out_i.data_ptr(),
-        out_b.data_ptr(), P, block, FORK_POLICIES.index(policy), n_con, n_stack, vc, vm,
-        int(defer), _stream(dev))
-    _raise_on(err, "fork_plan")
-    fork_plan.launches += 1
-    return out_i, out_b
+def fork_plan(sf, *, block: int, policy: str, defer: bool, loop_bound: int = 0, visited=None,
+              k7: ForkExpand = None):
+    """K7: the whole fork expansion of ``expand_forks`` — the fork map for
+    every fork block of ``block`` lanes, each copy lane's rows of every
+    field from its source, and the fix-ups — in place on the fields of
+    ``sf``, which the caller owns. ``visited`` is the coverage bitmap
+    ``bool[C, MC]`` or None. ``k7``: the loop's descriptor; None: a
+    descriptor of its own. -> ``sf``."""
+    k7 = k7 or ForkExpand.on_card(sf.base.pc.device)
+    return k7.expand(sf, block=block, policy=policy, defer=defer, loop_bound=loop_bound,
+                     visited=visited)
 
 
 # ---------------------------------------------------------------------------

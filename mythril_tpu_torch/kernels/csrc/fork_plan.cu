@@ -1,121 +1,79 @@
-// K7: policy-keyed fork planning, one CUDA thread block per fork block.
+// K7: the whole fork expansion, in place: plan, row copy, fix-ups.
 //
 // Replaces the JAX package's symbolic/engine.py `plan_fork_map` (the
-// packed algorithm, every policy) and the per-lane fix-ups of
-// `expand_forks` that follow its frontier gather. A fork block is B
-// lanes (fork_block = 0 means one block of P); forks only copy into free
-// lanes of their own block, so blocks are independent and each runs in
-// one thread block with its B keys in shared memory:
+// packed algorithm, every policy) together with `expand_forks`: the
+// gather of every frontier field by the fork map and the fix-ups that
+// follow it. JAX gathers a new frontier; here the loop owns its fields
+// (symbolic/engine.py `own_loop_fields`) and the expansion writes them in
+// place, through a descriptor marshaled once per loop
+// (kernels.ForkExpand). One expansion is three launches and a memset:
 //
-//   1. every lane's policy key (symbolic/engine.py `expand_forks`): 0 for
-//      fifo, depth for shallow/beam, C - depth for deep, the shared 32-bit
-//      multiplicative hash of (lane, target, depth) for random/weighted,
-//      the visited bit of the taken target for coverage; packed as
-//      min(key, KSENT - 1) * B + lane for requests, KSENT * B + lane else;
-//   2. a bitonic sort of the packed keys (padded to a power of two); the
-//      sorted position of a lane's key is its admission rank;
-//   3. block scans of the free mask (each free slot's free rank) and
-//      counts of requests and free slots; beam caps admissions at B / 4;
-//   4. per lane: the copy mask, its source (the request whose rank equals
-//      the slot's free rank), the admission sentinel (slot = P when
-//      starved), and the fix-ups `expand_forks` applies to the gathered
-//      frontier, read from the source lane: pc, sp, the constraint count
-//      and the index of the sign to flip, the fork_cslot stack write, the
-//      call-enumeration counter, dropped/deferred accounting and the
-//      backward-copy flag.
+//   1. plan, a block per fork block of B lanes (forks copy only into free
+//      lanes of their own block): each lane's packed policy key, a
+//      bitonic sort (stages whose partners lie in other warps through
+//      shared memory, the others in registers with `__shfl_xor_sync`),
+//      warp-ballot scans of the free mask, then per lane the copy mask,
+//      the source, the admission slot and the fix-ups' values read from
+//      the source (fork_expand.cuh `plan_lane`); each block appends its
+//      copy lanes to one list (an atomic on its length);
+//   2. copy, a persistent grid that reads the list's length on the
+//      device: each copy lane's row of every lane-axis field from its
+//      source (the profiler's row is not copied: its counts go to the
+//      sidecar and a copy starts at zero). Rows of 512 B and more go by a
+//      block per 16 KiB chunk, in 16-byte vectors where the addresses
+//      allow, four loads a thread in flight; smaller rows by a thread per
+//      (copy, field).
+//      Sources are active lanes and copies land in free ones, so no copy
+//      reads a row another writes;
+//   3. fix-ups, a thread per lane, after the copy: pc, sp, the constraint
+//      count and the taken sign, the concretized CALL target, the fork
+//      plumbing, the dropped/deferred accounting, the starved JUMPIs' gas
+//      and profiler undo, and the bounded-loops table for backward copies.
 //
-// The gather of every frontier field by `src` stays in PyTorch (a copy).
-//
-// Bound: the sort. B log^2 B / 2 compare-exchanges per block in shared
-// memory against ~50 bytes read and ~50 written per lane; at P = 2048 a
-// launch is a few microseconds of work, so it is latency-bound.
+// Bound: bytes. Each copy reads and writes its source's row, 273,616 B at
+// the default limits; the plan reads and writes ~74 B a lane. The plan's
+// sort is B log^2 B / 2 compare-exchanges in shared memory, microseconds.
 
-#include <cstdint>
+#include "fork_expand.cuh"
+
 #include <climits>
-#include <cuda_runtime.h>
 
-enum { POL_FIFO = 0, POL_SHALLOW, POL_DEEP, POL_RANDOM, POL_WEIGHTED, POL_COVERAGE, POL_BEAM };
-// rows of the int32 and bool outputs
-enum { O_SRC = 0, O_SLOT, O_PC, O_SP, O_CON_LEN, O_LAST, O_CIDX, O_CALL_ENUM, O_DROPPED, N_OI };
-enum { B_COPY = 0, B_FORK_REQ, B_STARVED, B_BACK, N_OB };
+using namespace k7;
 
-__device__ inline int policy_key(int policy, int p, int depth, int dest, int cid, int C,
-                                 const bool* visited, int Vc, int Vm) {
-  switch (policy) {
-    case POL_SHALLOW:
-    case POL_BEAM:
-      return depth;
-    case POL_DEEP:
-      return C - depth;
-    case POL_RANDOM:
-    case POL_WEIGHTED: {
-      uint32_t h = (uint32_t)p * 2654435761u + (uint32_t)dest * 40503u + (uint32_t)depth * 131u;
-      h = (h >> 16) ^ h;
-      if (policy == POL_RANDOM) return (int)(h & 0x7FFFu);
-      return (int)((h & 1023u) * (uint32_t)(depth + 1) % 65536u);
-    }
-    case POL_COVERAGE: {
-      if (Vc <= 0) return 0;
-      int r = min(max(cid, 0), Vc - 1), c = min(max(dest, 0), Vm - 1);
-      return visited[(int64_t)r * Vm + c] ? 1 : 0;
-    }
-    default:
-      return 0;
-  }
-}
+// elements of a fork block per thread: Bp / threads, Bp <= 8192
+constexpr int EMAX = 8;
 
-__global__ void fork_plan_kernel(const bool* __restrict__ active,
-                                 const bool* __restrict__ fork_req,
-                                 const int32_t* __restrict__ con_len,
-                                 const int32_t* __restrict__ fork_dest,
-                                 const int32_t* __restrict__ contract_id,
-                                 const int32_t* __restrict__ pc,
-                                 const int32_t* __restrict__ sp,
-                                 const int32_t* __restrict__ dropped,
-                                 const int32_t* __restrict__ fork_cslot,
-                                 const int32_t* __restrict__ call_enum,
-                                 const bool* __restrict__ visited, int32_t* __restrict__ out_i,
-                                 bool* __restrict__ out_b, int P, int B, int Bp, int policy,
-                                 int C, int S, int Vc, int Vm, int defer, int ksent) {
+__global__ void fork_plan_kernel(const Plan q, int Bp, int E) {
   extern __shared__ int32_t smem[];
-  int32_t* skey = smem;            // [Bp] packed keys, sorted in place
-  int32_t* rank = skey + Bp;       // [B] admission rank per lane
-  int32_t* frank = rank + B;       // [B] exclusive prefix of the free mask
-  int32_t* sums = frank + B;       // [blockDim.x] per-thread scan totals
-  __shared__ int n_req, n_free;
-  const int g = blockIdx.x, tid = threadIdx.x, nt = blockDim.x;
-  const int base = g * B;
-  if (tid == 0) {
-    n_req = 0;
-    n_free = 0;
-  }
+  int32_t* skey = smem;       // [Bp] packed keys, sorted in place
+  int32_t* rank = skey + Bp;  // [B] admission rank per lane
+  __shared__ int32_t wsum[32];
+  __shared__ int n_req, n_free, round_total, pos0;
+  const int tid = threadIdx.x, nt = blockDim.x, lane = tid & 31, warp = tid >> 5;
+  const int nwarps = nt >> 5, B = q.B, base = blockIdx.x * B;
+  const unsigned full = 0xFFFFFFFFu;
+  if (tid == 0) n_req = 0;
   __syncthreads();
-  int my_req = 0, my_free = 0;
-  for (int l = tid; l < Bp; l += nt) {
-    if (l >= B) {
-      skey[l] = INT_MAX;
-      continue;
+  for (int i = tid; i < Bp; i += nt) skey[i] = i < B ? packed_key(q, base, i) : INT_MAX;
+#pragma unroll
+  for (int e = 0; e < EMAX; ++e) {
+    if (e < E) {
+      const int l = e * nt + tid;
+      const bool req = l < B && q.fork_req[base + l] && q.active[base + l];
+      const unsigned b = __ballot_sync(full, req);
+      if (lane == 0 && b) atomicAdd(&n_req, __popc(b));
     }
-    int p = base + l;
-    bool req = fork_req[p] && active[p];
-    int key = policy_key(policy, p, con_len[p], fork_dest[p], contract_id[p], C, visited, Vc,
-                         Vm);
-    skey[l] = (req ? min(key, ksent - 1) : ksent) * B + l;
-    my_req += req;
-    my_free += !active[p];
   }
-  atomicAdd(&n_req, my_req);
-  atomicAdd(&n_free, my_free);
   __syncthreads();
   // bitonic sort, ascending
   for (int k = 2; k <= Bp; k <<= 1) {
-    for (int j = k >> 1; j > 0; j >>= 1) {
+    int j = k >> 1;
+    for (; j >= 32; j >>= 1) {
       for (int i = tid; i < Bp; i += nt) {
-        int ixj = i ^ j;
+        const int ixj = i ^ j;
         if (ixj > i) {
-          int32_t a = skey[i], b = skey[ixj];
-          bool up = (i & k) == 0;
-          if ((a > b) == up) {
+          const int32_t a = skey[i], b = skey[ixj];
+          if ((a > b) == ((i & k) == 0)) {
             skey[i] = b;
             skey[ixj] = a;
           }
@@ -123,92 +81,108 @@ __global__ void fork_plan_kernel(const bool* __restrict__ active,
       }
       __syncthreads();
     }
+#pragma unroll
+    for (int e = 0; e < EMAX; ++e) {
+      if (e < E) {
+        const int i = e * nt + tid;
+        int32_t v = skey[i];
+        for (int jj = j; jj > 0; jj >>= 1) {
+          const int32_t o = __shfl_xor_sync(full, v, jj);
+          v = (((i & jj) == 0) == ((i & k) == 0)) ? min(v, o) : max(v, o);
+        }
+        skey[i] = v;
+      }
+    }
+    __syncthreads();
   }
   for (int i = tid; i < B; i += nt) rank[skey[i] % B] = i;
-  // exclusive scan of the free mask: a contiguous chunk per thread, then
-  // the per-thread totals
-  int chunk = (B + nt - 1) / nt;
-  int lo = tid * chunk, hi = min(lo + chunk, B), run = 0;
-  for (int l = lo; l < hi; ++l) {
-    frank[l] = run;
-    run += !active[base + l];
-  }
-  sums[tid] = run;
-  __syncthreads();
-  if (tid == 0) {
-    int acc = 0;
-    for (int t = 0; t < nt; ++t) {
-      int v = sums[t];
-      sums[t] = acc;
-      acc += v;
-    }
-  }
-  __syncthreads();
-  for (int l = lo; l < hi; ++l) frank[l] += sums[tid];
-  __syncthreads();
-  const int n_adm = policy == POL_BEAM ? min(n_free, max(1, B / 4)) : n_free;
-  const int n_admit = min(n_adm, n_req);
-  for (int l = tid; l < B; l += nt) {
-    int p = base + l;
-    bool act = active[p];
-    bool req = fork_req[p] && act;
-    bool is_copy = !act && frank[l] < n_admit;
-    int s = is_copy ? base + skey[min(max(frank[l], 0), B - 1)] % B : p;
-    int slot = (req && rank[l] < n_adm) ? 0 : P;
-    bool starved = req && slot == P;
-    int cs = fork_cslot[s];
-    bool is_cf = cs >= 0;
-    int pc_s = pc[s], dest_s = fork_dest[s];
-    int pc_new = pc_s, sp_new = sp[s], cl_new = con_len[s];
-    int ce_new = is_copy ? 0 : call_enum[s];
-    if (is_copy) pc_new = dest_s;
-    if (defer && starved) {
-      if (!is_cf) {
-        pc_new = pc_s - 1;
-        sp_new += 2;
+  // exclusive scan of the free mask, E rounds of nt lanes: a ballot per
+  // warp, then one warp scans the warps' counts
+  int frank[EMAX];
+  int run = 0;
+#pragma unroll
+  for (int e = 0; e < EMAX; ++e) {
+    frank[e] = 0;
+    if (e < E) {
+      const int l = e * nt + tid;
+      const bool fr = l < B && !q.active[base + l];
+      const unsigned b = __ballot_sync(full, fr);
+      if (lane == 0) wsum[warp] = __popc(b);
+      __syncthreads();
+      if (warp == 0) {
+        const int v = lane < nwarps ? wsum[lane] : 0;
+        int x = v;
+        for (int d = 1; d < 32; d <<= 1) {
+          const int y = __shfl_up_sync(full, x, d);
+          if (lane >= d) x += y;
+        }
+        if (lane < nwarps) wsum[lane] = x - v;
+        if (lane == 31) round_total = x;
       }
-      cl_new -= 1;
-      if (is_cf) ce_new -= 1;
+      __syncthreads();
+      frank[e] = run + wsum[warp] + __popc(b & ((1u << lane) - 1u));
+      run += round_total;
+      __syncthreads();
     }
-    const int64_t P64 = P;
-    out_i[O_SRC * P64 + p] = s;
-    out_i[O_SLOT * P64 + p] = slot;
-    out_i[O_PC * P64 + p] = pc_new;
-    out_i[O_SP * P64 + p] = sp_new;
-    out_i[O_CON_LEN * P64 + p] = cl_new;
-    out_i[O_LAST * P64 + p] = is_copy ? con_len[s] - 1 : -1;
-    out_i[O_CIDX * P64 + p] = (is_copy && cs >= 0 && cs < S) ? cs : S;
-    out_i[O_CALL_ENUM * P64 + p] = ce_new;
-    out_i[O_DROPPED * P64 + p] = (is_copy ? 0 : dropped[s]) + ((!defer && starved) ? 1 : 0);
-    out_b[B_COPY * P64 + p] = is_copy;
-    out_b[B_FORK_REQ * P64 + p] = defer && starved;
-    out_b[B_STARVED * P64 + p] = starved;
-    out_b[B_BACK * P64 + p] = is_copy && dest_s < pc_s;
+  }
+  if (tid == 0) n_free = run;
+  __syncthreads();
+  const int n_adm = q.policy == POL_BEAM ? min(n_free, max(1, B / 4)) : n_free;
+  const int n_admit = min(n_adm, n_req);
+  if (tid == 0) pos0 = n_admit ? atomicAdd(q.count, n_admit) : 0;
+  __syncthreads();
+#pragma unroll
+  for (int e = 0; e < EMAX; ++e) {
+    const int l = e * nt + tid;
+    if (e < E && l < B) finish_lane(q, base, l, frank[e], rank[l], skey, n_adm, n_admit, pos0);
   }
 }
 
-extern "C" int fork_plan(const bool* active, const bool* fork_req, const int32_t* con_len,
-                         const int32_t* fork_dest, const int32_t* contract_id,
-                         const int32_t* pc, const int32_t* sp, const int32_t* dropped,
-                         const int32_t* fork_cslot, const int32_t* call_enum,
-                         const bool* visited, int32_t* out_i, bool* out_b, int P, int B,
-                         int policy, int C, int S, int Vc, int Vm, int defer, void* stream) {
+__global__ void fork_copy_kernel(const __grid_constant__ CopyTable t) {
+  const int n = *t.count;
+  const int64_t n_big = (int64_t)n * t.n_chunks;
+  for (int64_t w = blockIdx.x; w < n_big; w += gridDim.x) copy_big(t, w, threadIdx.x, blockDim.x);
+  if (t.op_hist) {
+    for (int64_t w = blockIdx.x; w < n; w += gridDim.x)
+      copy_hist(t, w, threadIdx.x, blockDim.x);
+  }
+  const int64_t n_small = (int64_t)n * (t.n_fields - t.n_big);
+  for (int64_t w = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; w < n_small;
+       w += (int64_t)gridDim.x * blockDim.x)
+    copy_small(t, w);
+}
+
+__global__ void fork_fix_kernel(const Fix x) {
+  const int p = blockIdx.x * blockDim.x + threadIdx.x;
+  if (p < x.P) fix_lane(x, p);
+}
+
+// the copy kernel's persistent grid: four blocks an SM
+constexpr int COPY_BLOCKS = 528, COPY_THREADS = 256, FIX_THREADS = 256;
+
+extern "C" int fork_expand(const uint64_t* ptrs, const int32_t* ints, void* stream_) {
+  cudaStream_t stream = (cudaStream_t)stream_;
+  const int P = ints[I_P], B = ints[I_B];
   if (P <= 0) return 0;
-  int Bp = 1;
+  if (B <= 0 || P % B || ints[I_N_FIELDS] > MAX_FIELDS) return (int)cudaErrorInvalidValue;
+  int Bp = 32;
   while (Bp < B) Bp <<= 1;
-  int threads = Bp < 1024 ? Bp : 1024;
-  int smem = (Bp + 2 * B + threads) * (int)sizeof(int32_t);
-  // the packed-key sentinel: the key budget that keeps key * B + lane in
-  // int32 (JAX plan_fork_map's KSENT)
-  long long budget = (2147483647LL - (B - 1)) / B;
-  int ksent = budget < (1 << 16) ? (int)budget : (1 << 16);
+  const int threads = Bp < 1024 ? Bp : 1024, E = Bp / threads;
+  if (E > EMAX) return (int)cudaErrorInvalidValue;
+  const int smem = (Bp + B) * (int)sizeof(int32_t);
+  cudaError_t e;
   if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(fork_plan_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    e = cudaFuncSetAttribute(fork_plan_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem);
     if (e != cudaSuccess) return (int)e;
   }
-  fork_plan_kernel<<<P / B, threads, smem, (cudaStream_t)stream>>>(
-      active, fork_req, con_len, fork_dest, contract_id, pc, sp, dropped, fork_cslot,
-      call_enum, visited, out_i, out_b, P, B, Bp, policy, C, S, Vc, Vm, defer, ksent);
+  e = cudaMemsetAsync((void*)ptrs[X_COUNT], 0, sizeof(int32_t), stream);
+  if (e != cudaSuccess) return (int)e;
+  fork_plan_kernel<<<P / B, threads, smem, stream>>>(make_plan(ptrs, ints), Bp, E);
+  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  fork_copy_kernel<<<COPY_BLOCKS, COPY_THREADS, 0, stream>>>(make_copy(ptrs, ints));
+  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  fork_fix_kernel<<<(P + FIX_THREADS - 1) / FIX_THREADS, FIX_THREADS, 0, stream>>>(
+      make_fix(ptrs, ints));
   return (int)cudaGetLastError();
 }

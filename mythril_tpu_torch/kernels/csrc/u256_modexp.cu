@@ -1,78 +1,54 @@
-// K5: u256 modular exponentiation base ** e mod m (m == 0 -> 0), one
-// thread per lane.
+// K5: u256 modular exponentiation base ** e mod m (m == 0 -> 0), a
+// quarter-warp per lane.
 //
 // Replaces the JAX package's ops/u256.py `modexp` (precompile 0x5 for
 // operands of at most 32 bytes), whose MSB-first square-and-multiply
 // calls the 512-step bitwise `_mod_wide` twice per exponent bit. The
 // function is the same — the accumulator starts at 1, so m == 1 gives 0
-// even for e == 0 — but the reduction is Barrett's: the modulus is
-// normalized (m_n = m << s, top bit 255), mu = floor(2^512 / m_n) is
-// found once per lane by shift-subtract (258 steps), and each 512-bit
-// product x (< m_n * 2^256 after the shift) is reduced as
-//   q3 = ((x >> 255) * mu) >> 257,  r = x - q3 * m_n  (in [0, 3 m_n)),
-// then at most two subtractions of m_n, and r >> s. The thread walks
-// its own exponent's bits from the highest set one (the leading zeros
-// leave 1 mod m unchanged).
+// even for e == 0.
 //
-// Bound: operations. A product-reduce step is 190 32x32->64 multiply-
-// adds (64 + 81 + 45) plus shifts; a lane does bitlen(e) squarings and
-// popcount(e) multiplies, up to 512 for a 256-bit exponent. Limbs live
-// in small local arrays indexed at run time by the per-lane shift; the
-// limb helpers and the Barrett reduction are shared with K9 (u256.cuh).
+// The precompile path hands the kernel only the lanes that call MODEXP,
+// usually one or two, so a launch's time is one lane's chain of dependent
+// modular products. The body (modexp.cuh) spreads each product over the
+// eight threads of a quarter-warp, one limb each, with every limb in a
+// register at a fixed index, and walks the exponent in fixed 4-bit
+// windows: at most 256 squarings and 64 multiplies by a table of 16
+// powers in shared memory, each reduced by Barrett's method on the
+// normalized modulus (m may be even).
+//
+// Bound: operations. A modular product is three 8 x 8-limb products (190
+// 32x32->64 multiply-adds) plus carries; a lane needs bitlen(e)
+// squarings and popcount(e) multiplies. What is left serial is a lane's
+// chain of products: each is a few dependent rounds of shuffles and
+// ballots.
 
-#include "u256.cuh"
+#include "modexp.cuh"
 
-using namespace u256;
-
-// r = a * b mod m for 8-limb a below m (so a * b < m * 2^256)
-__device__ void mulmod(const Barrett& B, const uint32_t* a, const uint32_t* b, uint32_t* r) {
-  uint32_t x[16];
-  mul_low(a, 8, b, 8, x, 16);
-  barrett_reduce(B, x, r);
-}
+// lanes per block: 8 threads each
+constexpr int LANES = 8;
 
 __global__ void modexp_kernel(const int64_t* __restrict__ base_in,
                               const int64_t* __restrict__ e_in,
                               const int64_t* __restrict__ m_in,
                               int64_t* __restrict__ out, int n) {
-  int p = blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= n) return;
-  uint32_t base[8], e[8], m[8];
-  for (int i = 0; i < 8; ++i) {
-    base[i] = (uint32_t)base_in[8 * (int64_t)p + i];
-    e[i] = (uint32_t)e_in[8 * (int64_t)p + i];
-    m[i] = (uint32_t)m_in[8 * (int64_t)p + i];
-  }
-  int top = top_bit8(m);
-  if (top < 0) {  // m == 0
-    for (int i = 0; i < 8; ++i) out[8 * (int64_t)p + i] = 0;
-    return;
-  }
-  Barrett B;
-  barrett_init(B, m, top);
-  // accumulator: 1 mod m
-  uint32_t acc[8] = {0, 0, 0, 0, 0, 0, 0, 0};
-  bool m_is_one = (m[0] == 1u);
-  for (int i = 1; i < 8; ++i) m_is_one = m_is_one && (m[i] == 0u);
-  acc[0] = m_is_one ? 0u : 1u;
-  int etop = top_bit8(e);
-  uint32_t t[8];
-  for (int i = etop; i >= 0; --i) {
-    mulmod(B, acc, acc, t);
-    for (int k = 0; k < 8; ++k) acc[k] = t[k];
-    if ((e[i >> 5] >> (i & 31)) & 1u) {
-      mulmod(B, acc, base, t);
-      for (int k = 0; k < 8; ++k) acc[k] = t[k];
-    }
-  }
-  for (int i = 0; i < 8; ++i) out[8 * (int64_t)p + i] = (int64_t)acc[i];
+  __shared__ uint32_t tab[LANES][16 * 8];
+  const int t = threadIdx.x, p = blockIdx.x * LANES + (t >> 3);
+  const k5::Group G{t & 7, t & 24};
+  // groups past the last lane compute 0 ** 0 mod 1 with the others: every
+  // thread of a warp takes every shuffle
+  const bool live = p < n;
+  const int64_t at = 8 * (int64_t)p + G.g;
+  const uint32_t b = live ? (uint32_t)base_in[at] : 0u;
+  const uint32_t e = live ? (uint32_t)e_in[at] : 0u;
+  const uint32_t m = live ? (uint32_t)m_in[at] : (G.g == 0 ? 1u : 0u);
+  const uint32_t r = k5::modexp(G, b, e, m, tab[t >> 3]);
+  if (live) out[at] = (int64_t)r;
 }
 
 extern "C" int modexp_u256(const int64_t* base, const int64_t* e, const int64_t* m,
                            int64_t* out, int n, void* stream) {
   if (n <= 0) return 0;
-  int threads = 64;
-  int blocks = (n + threads - 1) / threads;
-  modexp_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(base, e, m, out, n);
+  int blocks = (n + LANES - 1) / LANES;
+  modexp_kernel<<<blocks, 8 * LANES, 0, (cudaStream_t)stream>>>(base, e, m, out, n);
   return (int)cudaGetLastError();
 }

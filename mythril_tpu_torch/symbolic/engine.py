@@ -12,7 +12,10 @@ schedules, the instruction profiler):
   (kernel K3 on the card, see :func:`append_node`);
 - a symbolic JUMPI records a fork request; :func:`expand_forks` copies
   requesting lanes into free lanes of their fork block in the policy's
-  order (the map and fix-ups on kernel K7); starved lanes park and move
+  order (in place, inside ``sym_run``: kernel K7 on the card plans, copies
+  the rows and fixes them up, :func:`expand_forks_inplace`; the plain
+  functional gather :func:`expand_forks_plain` is its reference); starved
+  lanes park and move
   between blocks at chunk seams (:func:`rebalance_parked`) or in the loop
   (:func:`migrate_parked_device`);
 - the berlin schedule adds EIP-2929 cold surcharges around dispatch
@@ -145,7 +148,7 @@ def append_node(sf: SymFrontier, mask, op, a, b, imm=None):
     one. Both update the tape tensors IN PLACE (the JAX function returned
     a new tape): ``sym_run`` and ``sym_superstep`` copy the tape once on
     entry (:func:`own_loop_fields`), so their caller's frontier keeps
-    its tape, and ``expand_forks`` gathers a fresh tape for its copies."""
+    its tape; a fork expansion copies a copy lane's tape rows in place."""
     P, T = sf.tape_op.shape
     dev = sf.tape_op.device
 
@@ -1916,20 +1919,25 @@ def _loop_k3(device: torch.device):
         _K3.reset(token)
 
 
-# the fields a loop writes in place besides K10's (``kernels.EVM_WRITES``):
-# K3 and its plain version append to the tape, K6 sweeps the domains
+# the fields a superstep writes in place besides K10's
+# (``kernels.EVM_WRITES``): K3 and its plain version append to the tape
 _TAPE_FIELDS = ("tape_op", "tape_a", "tape_b", "tape_imm", "tape_hash", "tape_len")
-_SWEEP_FIELDS = ("iv_lo", "iv_hi", "kb_m", "kb_v", "prop_len")
 
 
-def own_loop_fields(sf: SymFrontier, k10, sweeps: bool = False) -> SymFrontier:
+def own_loop_fields(sf: SymFrontier, k10, forks: bool = False) -> SymFrontier:
     """``sf`` with fresh copies of every field a loop over it writes in
     place, so that the tensors the caller holds stay as they were: the
-    tape (K3 appends in place, and so does its plain version), and on the
-    card (a descriptor ``k10``) the fields K10 writes and, when the loop
-    ``sweeps``, K6's domains."""
-    names = _TAPE_FIELDS + (_SWEEP_FIELDS if sweeps and sf.tape_op.is_cuda else ())
-    sf = sf.replace(**{k: getattr(sf, k).clone() for k in names})
+    tape (K3 appends in place, and so does its plain version) and on the
+    card (a descriptor ``k10``) the fields K10 writes; when the loop
+    ``forks``, every field a fork expansion writes
+    (:func:`own_fork_fields`: K7 and its plain version copy rows of every
+    lane-axis field in place, and K6 sweeps the domains in place)."""
+    if forks:
+        from ..kernels import EVM_WRITES
+
+        sf = own_fork_fields(sf, EVM_WRITES["superstep"] if k10 is not None else ())
+    else:
+        sf = sf.replace(**{k: getattr(sf, k).clone() for k in _TAPE_FIELDS})
     if k10 is not None:
         from ..kernels import own_evm_fields
 
@@ -2189,8 +2197,8 @@ def between_txs(sf: SymFrontier, require_mutation: bool = True,
     )
 
 
-# rows of K7's outputs (kernels/csrc/fork_plan.cu), shared with its plain
-# version
+# rows of K7's plan outputs (kernels/csrc/fork_expand.cuh), shared with
+# their plain version
 O_SRC, O_SLOT, O_PC, O_SP, O_CON_LEN, O_LAST, O_CIDX, O_CALL_ENUM, O_DROPPED = range(9)
 B_COPY, B_FORK_REQ, B_STARVED, B_BACK = range(4)
 
@@ -2232,10 +2240,11 @@ def _policy_key(policy: str, con_len, fork_dest, contract_id, visited, n_con: in
 def fork_plan_plain(active, fork_req, con_len, fork_dest, contract_id, pc, sp,
                     dropped_forks, fork_cslot, call_enum, visited, *, block: int,
                     policy: str, n_con: int, n_stack: int, defer: bool):
-    """Plain version of K7: the JAX packed ``plan_fork_map`` for every
-    policy over fork blocks of ``block`` lanes, and the per-lane fix-ups
-    ``expand_forks`` makes after its gather, read from each lane's source.
-    Returns K7's (``int32[9, P]``, ``bool[9, P]``) rows (``O_*``/``B_*``)."""
+    """Plain version of K7's plan: the JAX packed ``plan_fork_map`` for
+    every policy over fork blocks of ``block`` lanes, and the values of
+    the per-lane fix-ups that follow the row copy, read from each lane's
+    source. Returns K7's (``int32[9, P]``, ``bool[4, P]``) rows
+    (``O_*``/``B_*``)."""
     P = active.shape[0]
     B = block
     G = P // B
@@ -2302,21 +2311,8 @@ def _gather_struct(st, src):
     return type(st)(**kw)
 
 
-def expand_forks(sf: SymFrontier, loop_bound: int = 0, fork_block: int = 0,
-                 fork_policy: str = "fifo", defer_starved: bool = False,
-                 visited=None) -> SymFrontier:
-    """Materialize fork requests: copy each forking lane into a free lane
-    of its fork block, point the copy at the jump target, and flip its
-    final path-condition sign to "taken". Forks beyond capacity are
-    counted in ``dropped_forks``, or with ``defer_starved`` un-execute
-    their branch decision and retry next superstep.
-
-    ``fork_block`` confines copies to blocks of that many lanes (0 = one
-    block of P); ``fork_policy`` (fifo, shallow, deep, random, weighted,
-    coverage, beam) orders admission when free slots run short;
-    ``visited`` (``bool[C, MC]``) feeds the coverage policy. The map and
-    the per-lane fix-ups come from kernel K7 on the card and from its
-    plain version on the CPU; the gather of every field stays PyTorch."""
+def _fork_args(sf, fork_block, fork_policy, defer_starved, visited):
+    """``fork_plan_plain``'s arguments for a frontier, and the block size."""
     P = sf.n_lanes
     if fork_block > 0 and P % fork_block != 0:
         raise ValueError(f"fork_block {fork_block} must divide P={P}")
@@ -2326,13 +2322,20 @@ def expand_forks(sf: SymFrontier, loop_bound: int = 0, fork_block: int = 0,
             b0.sp, sf.dropped_forks, sf.fork_cslot, sf.call_enum, visited)
     kw = dict(block=B, policy=fork_policy, n_con=sf.con_node.shape[1],
               n_stack=b0.stack.shape[1], defer=defer_starved)
-    if b0.active.is_cuda:
-        from ..kernels import fork_plan
+    return B, args, kw
 
-        out_i, out_b = fork_plan(*args, **kw)
-    else:
-        out_i, out_b = fork_plan_plain(*args, **kw)
+
+def expand_forks_plain(sf: SymFrontier, loop_bound: int = 0, fork_block: int = 0,
+                       fork_policy: str = "fifo", defer_starved: bool = False,
+                       visited=None) -> SymFrontier:
+    """The plain functional fork expansion (the JAX ``expand_forks``, on
+    any device): the fork map of :func:`fork_plan_plain`, a gather of
+    every lane-axis field by it into a new frontier, and the fix-ups. The
+    reference the in-place route (K7 on the card) is held to."""
+    B, args, kw = _fork_args(sf, fork_block, fork_policy, defer_starved, visited)
+    out_i, out_b = fork_plan_plain(*args, **kw)
     is_copy, starved = out_b[B_COPY], out_b[B_STARVED]
+    b0 = sf.base
 
     # the iprof residual sidecar is lane-independent: keep it out of the
     # lane gather
@@ -2377,6 +2380,121 @@ def expand_forks(sf: SymFrontier, loop_bound: int = 0, fork_block: int = 0,
         dropped_total=new.dropped_total + (0 if defer_starved else starved.sum(dtype=I32)),
     )
     return _note_backjump(new, out_b[B_BACK], src_pc, new.fork_dest, loop_bound)
+
+
+def own_fork_fields(sf: SymFrontier, skip=()) -> SymFrontier:
+    """``sf`` with fresh, contiguous copies of every field a fork expansion
+    writes in place (``kernels.fork_rows``, the profiler's rows and sidecar
+    and the run total of dropped forks), but the base fields named in
+    ``skip``."""
+    from ..kernels import FORK_EXTRA_PATHS, fork_rows
+
+    own = {"base": {}, "sf": {}}
+    for path in FORK_EXTRA_PATHS + tuple(fork_rows(sf)):
+        owner, _, name = path.rpartition(".")
+        t = getattr(sf.base if owner else sf, name)
+        if t is not None and not (owner and name in skip):
+            own["base" if owner else "sf"][name] = t.clone(memory_format=torch.contiguous_format)
+    return sf.replace(base=sf.base.replace(**own["base"]), **own["sf"])
+
+
+def _expand_plain_inplace(sf: SymFrontier, loop_bound: int, fork_block: int,
+                          fork_policy: str, defer_starved: bool, visited, paths):
+    """The in-place route's plain version: :func:`fork_plan_plain`, each
+    copy lane's row of every field in ``paths`` from its source, then the
+    fix-ups, each lane's from its own (copied) row, as K7 makes them."""
+    _, args, kw = _fork_args(sf, fork_block, fork_policy, defer_starved, visited)
+    out_i, out_b = fork_plan_plain(*args, **kw)
+    is_copy, starved = out_b[B_COPY], out_b[B_STARVED]
+    dst = torch.nonzero(is_copy).flatten()
+    src = out_i[O_SRC][dst].long()
+    b = sf.base
+    for path in paths:
+        owner, _, name = path.rpartition(".")
+        t = getattr(b if owner else sf, name)
+        t[dst] = t[src]
+    # what the fix-ups read of a lane's row before they write it
+    cslot, pc_old = sf.fork_cslot.clone(), b.pc.clone()
+    cidx, last = out_i[O_CIDX].long(), out_i[O_LAST].long()
+    w = torch.nonzero((cidx >= 0) & (cidx < b.stack.shape[1])).flatten()
+    b.stack[w, cidx[w]] = sf.fork_cval[w]
+    sf.stack_sym[w, cidx[w]] = 0
+    w = torch.nonzero((last >= 0) & (last < sf.con_sign.shape[1])).flatten()
+    sf.con_sign[w, last[w]] = True
+    hist = b.op_hist
+    if defer_starved:
+        un_jump = starved & (cslot < 0)
+        g_undo = torch.where(un_jump, 10, 0).to(b.gas_min.dtype)
+        b.gas_min.sub_(g_undo)
+        b.gas_max.sub_(g_undo)
+        if hist is not None:
+            hist[:, 0x57] -= un_jump.to(I32)
+    if hist is not None:
+        b.op_resid.add_(hist[dst].sum(0, dtype=I32))
+        hist[dst] = 0
+    for t, row in ((b.pc, O_PC), (b.sp, O_SP), (sf.con_len, O_CON_LEN),
+                   (sf.call_enum, O_CALL_ENUM), (sf.dropped_forks, O_DROPPED)):
+        t.copy_(out_i[row])
+    b.active |= is_copy
+    sf.fork_req.copy_(out_b[B_FORK_REQ])
+    sf.fork_cslot.fill_(-1)
+    sf.fork_cval.zero_()
+    if not defer_starved:
+        sf.dropped_total.add_(starved.sum(dtype=I32))
+    if loop_bound > 0:
+        new = _note_backjump(sf, out_b[B_BACK], pc_old - 1, sf.fork_dest, loop_bound)
+        for k in ("lb_key", "lb_cnt", "lb_len"):
+            getattr(sf, k).copy_(getattr(new, k))
+        b.error.copy_(new.base.error)
+        b.err_code.copy_(new.base.err_code)
+    return sf
+
+
+def expand_forks_inplace(sf: SymFrontier, loop_bound: int = 0, fork_block: int = 0,
+                         fork_policy: str = "fifo", defer_starved: bool = False,
+                         visited=None, k7=None) -> SymFrontier:
+    """:func:`expand_forks` in place on the fields of ``sf``, which the
+    caller owns (``sym_run`` owns them from its entry,
+    :func:`own_loop_fields`): K7 on the card (one checked call through
+    the descriptor ``k7``, ``kernels.ForkExpand``, which the loop builds
+    once), its plain version on the CPU. ``k7`` None: a descriptor of its
+    own. -> ``sf``, the same tensors but where the descriptor made a
+    non-contiguous field contiguous."""
+    if k7 is None:
+        from ..kernels import ForkExpand
+
+        k7 = ForkExpand.for_frontier(sf)
+    B, _, _ = _fork_args(sf, fork_block, fork_policy, defer_starved, visited)
+    if sf.base.pc.is_cuda:
+        from ..kernels import fork_plan
+
+        return fork_plan(sf, block=B, policy=fork_policy, defer=defer_starved,
+                         loop_bound=loop_bound, visited=visited, k7=k7)
+    sf = k7.bind(sf)
+    return _expand_plain_inplace(sf, loop_bound, B, fork_policy, defer_starved, visited,
+                                 k7.rows)
+
+
+def expand_forks(sf: SymFrontier, loop_bound: int = 0, fork_block: int = 0,
+                 fork_policy: str = "fifo", defer_starved: bool = False,
+                 visited=None) -> SymFrontier:
+    """Materialize fork requests: copy each forking lane into a free lane
+    of its fork block, point the copy at the jump target, and flip its
+    final path-condition sign to "taken". Forks beyond capacity are
+    counted in ``dropped_forks``, or with ``defer_starved`` un-execute
+    their branch decision and retry next superstep.
+
+    ``fork_block`` confines copies to blocks of that many lanes (0 = one
+    block of P); ``fork_policy`` (fifo, shallow, deep, random, weighted,
+    coverage, beam) orders admission when free slots run short;
+    ``visited`` (``bool[C, MC]``) feeds the coverage policy.
+
+    The input is never changed: the fields are copied first
+    (:func:`own_fork_fields`) and the copy expanded in place
+    (:func:`expand_forks_inplace`: kernel K7 on the card, its plain
+    version on the CPU)."""
+    return expand_forks_inplace(own_fork_fields(sf), loop_bound, fork_block, fork_policy,
+                                defer_starved, visited)
 
 
 def _detach_resid(sf: SymFrontier):
@@ -2590,19 +2708,24 @@ def sym_run(sf: SymFrontier, env: Env, corpus: Corpus,
     more, and the migration cond one more on its cadence.
 
     The input is never changed. What the loop writes in place is copied
-    once, on entry (:func:`own_loop_fields`: the tape; on the card the
-    fields K10 writes and K6's domains), and K10's and K3's descriptors
+    once, on entry (:func:`own_loop_fields`: every field, since a fork
+    expansion copies rows of each), and K10's, K3's and K7's descriptors
     are built once: every superstep of the call then runs K10 in place on
-    those copies (see :func:`_sym_superstep`), and K3 appends to a tape
-    marshaled once (:func:`_loop_k3`). The frontier the caller passed —
+    those copies (see :func:`_sym_superstep`), K3 appends to a tape
+    marshaled once (:func:`_loop_k3`), and each fork expansion runs in
+    place (:func:`expand_forks_inplace`), so the tensors the other
+    descriptors point at stay the same. The frontier the caller passed —
     the wrapper's between chunks, a saved checkpoint, a batch the campaign
     retries — keeps its tensors as they were."""
     from .propagate import kill_infeasible
 
     if propagate_every is None:
         propagate_every = limits.propagate_every
+    from ..kernels import ForkExpand
+
     k10 = ci.k10_for(sf.base, limits.gas_schedule == "berlin")
-    sf = own_loop_fields(sf, k10, sweeps=0 < propagate_every <= max_steps)
+    sf = own_loop_fields(sf, k10, forks=True)
+    k7 = ForkExpand.for_frontier(sf)
     P = sf.n_lanes
     C, MC = corpus.code.shape
     # row C of the bitmap takes the lanes that write nowhere
@@ -2623,8 +2746,9 @@ def sym_run(sf: SymFrontier, env: Env, corpus: Corpus,
                 visited[cid, pc] = True
             sf = _stage("superstep_s", _sym_superstep, sf, env, corpus, spec, limits, k10)
             if ci.host_bool(torch.any(sf.fork_req & sf.base.active)):
-                sf = _stage("forks_s", expand_forks, sf, limits.loop_bound, fork_block,
-                            fork_policy, defer_starved, visited[:C] if track_coverage else None)
+                sf = _stage("forks_s", expand_forks_inplace, sf, limits.loop_bound,
+                            fork_block, fork_policy, defer_starved,
+                            visited[:C] if track_coverage else None, k7)
             if propagate_every and (i % propagate_every) == propagate_every - 1:
                 ENGINE_STATS["sweeps"] += 1
                 sf = _stage("propagate_s", kill_infeasible, sf)

@@ -147,9 +147,11 @@ def _sweep_args(torch):
             words(), words(), i32(P, C), torch.zeros((P, C), dtype=torch.bool), i32(P)]
 
 
-def _fork_args(torch):
-    flags = [torch.zeros(4, dtype=torch.bool)] * 2
-    return flags + [torch.zeros(4, dtype=torch.int32)] * 8 + [None]
+def _fork_frontier():
+    from mythril_tpu_torch.config import TEST_LIMITS
+    from mythril_tpu_torch.symbolic import make_sym_frontier
+
+    return make_sym_frontier(4, TEST_LIMITS)
 
 
 def _compute(path):
@@ -174,8 +176,8 @@ def _compute(path):
                                                        cpu),
         "exp_u256": lambda: kernels.exp_u256(cpu, cpu),
         "propagate_sweep": lambda: kernels.propagate_sweep(*_sweep_args(torch)),
-        "fork_plan": lambda: kernels.fork_plan(*_fork_args(torch), block=4, policy="beam",
-                                               n_con=4, n_stack=8, defer=True),
+        "fork_plan": lambda: kernels.fork_plan(_fork_frontier(), block=4, policy="beam",
+                                               defer=True),
     }
     from mythril_tpu_torch.config import TEST_LIMITS
     from mythril_tpu_torch.workloads import erc20_transfer_workload

@@ -1,10 +1,13 @@
 """Kernels K6 (the feasibility sweep, a warp per lane in dependency
-rounds) and K3 (the tape append, single rows and groups) before the card:
-their warp bodies (``kernels/csrc/propagate.cuh``, ``tape_append.cuh``)
-are compiled as host C++ with ``g++`` and a shim that runs each warp as
-32 threads meeting at every vote and barrier (``torch_port_warphost``),
-driven through the wrappers' own marshaling (``kernels.sweep_call``,
-``kernels.TapeAppend``) and held exactly to the plain versions:
+rounds), K3 (the tape append, single rows and groups), K5 (MODEXP, a
+quarter-warp per lane) and K7 (the in-place fork expansion) before the
+card: their bodies (``kernels/csrc/propagate.cuh``, ``tape_append.cuh``,
+``modexp.cuh``, ``fork_expand.cuh``) are compiled as host C++ with ``g++``
+and a shim that runs each warp as 32 threads meeting at every vote,
+shuffle and barrier (``torch_port_warphost``), driven through the
+wrappers' own marshaling (``kernels.sweep_call``, ``kernels.TapeAppend``,
+``kernels.modexp_call``, ``kernels.ForkExpand``) and held exactly to the
+plain versions:
 
 - K6 to ``propagate_feasibility_plain`` on seeded random tapes of
   ``chip_smoke.random_tapes`` at P = 16, T = 128 (self and forward
@@ -20,7 +23,18 @@ driven through the wrappers' own marshaling (``kernels.sweep_call``,
   node, rows repeating earlier rows of their group, a forged fingerprint
   collision, random sources, masked-off lanes and overflows mid-group,
   at P = 32 and the default tape length (T = 512: scans of several
-  steps).
+  steps);
+- K5 to ``modexp_plain`` and Python's ``pow`` on edge cases (m = 0, 1,
+  even, a power of two, 2^255 + 1; e = 0 and 256-bit exponents; base >= m)
+  a base and modulus that need Barrett's third correction, and seeded
+  full-width operands, at 17 lanes (a warp with three idle groups last)
+  and 3;
+- K7's copy and fix-up bodies, with the plan's per-lane body (its sort
+  and scans serial in the host build), to ``expand_forks_plain`` over
+  every leaf of ``chip_smoke.fork_frontier`` at P = 64 and the test
+  limits (random rows in every field, bounded-loops tables the copies
+  hit), for each policy, fork blocks of 16 and 64 lanes, defer on and
+  off, with the profiler and loop bound and without either.
 
 Everything runs in one child process (``torch_port_child``)."""
 
@@ -36,6 +50,11 @@ import torch_port_warphost as warphost
 SEEDS = [0, 1, 2]
 P_K6 = 16
 P_K3 = 32
+P_K7 = 64
+# a base and modulus whose table build needs Barrett's third correction
+# (q - qhat = 3 on the second power)
+BARRETT_3 = (115493631320220615308982905887737156535199793741578743490086311965284643747319, 5,
+             57896044618658097711785492504343953926751871052829057858986680950883660023585)
 T_TEST = 128  # TEST_LIMITS.tape_len
 
 
@@ -144,6 +163,50 @@ def _compute(path):
             repeats=int(((out_p[:, 1] == out_p[:, 0]) & mask[:, 1] & (out_p[:, 1] > 0)).sum())
             if name == "repeat" else None)
     res["k3 groups"] = groups
+
+    # K5 on its edge cases and full-width operands
+    from mythril_tpu_torch.ops import u256
+
+    M = (1 << 256) - 1
+    rng = np.random.default_rng(11)
+    full = [tuple(int.from_bytes(rng.bytes(32), "big") for _ in range(3)) for _ in range(3)]
+    cases = [(3, 5, 0), (3, 0, 1), (0, 0, 1), (5, 0, 7), (M, M, M), (M, M, M - 1),
+             (2, M, 1 << 255), (2, M, (1 << 255) + 1), (M, 2, 3), (12345, M, 1),
+             ((1 << 255) + 1, 3, (1 << 255) - 19), (9, M, 1 << 100), (M, 1, 2),
+             BARRETT_3] + full
+    k5 = {}
+    for n in (len(cases), 3):
+        b, e, m = (torch.as_tensor(u256.from_ints([c[i] for c in cases[:n]]).astype(np.int64))
+                   for i in range(3))
+        out = kernels.modexp_call(lib.modexp_u256, 0, b, e, m)
+        got = [u256.to_int(w) for w in out.numpy()]
+        k5[n] = dict(plain=bool(torch.equal(out, u256.modexp_plain(b, e, m))),
+                     pow=[i for i, (x, y, z) in enumerate(cases[:n])
+                          if got[i] != (pow(x, y, z) if z else 0)])
+    res["k5"] = k5
+
+    # K7's bodies through the descriptor, against the plain functional route
+    from mythril_tpu_torch.symbolic.engine import expand_forks_plain, own_fork_fields
+    from torch_port_batch import leaves
+
+    sf, vis = smoke.fork_frontier("cpu", np.random.default_rng(3), P=P_K7, limits=TEST_LIMITS)
+    bare = sf.replace(base=sf.base.replace(op_hist=None, op_resid=None))
+    k7 = kernels.ForkExpand(lib, 0, "cpu")
+    k7_res = {}
+    for policy in kernels.FORK_POLICIES:
+        for block in (16, P_K7):
+            for defer in (False, True):
+                for src, lb in ((sf, TEST_LIMITS.loop_bound), (bare, 0)):
+                    got = k7.expand(own_fork_fields(src), block=block, policy=policy, defer=defer,
+                                    loop_bound=lb, visited=vis)
+                    want = expand_forks_plain(src, lb, block, policy, defer, vis)
+                    w, g = leaves(want.to_numpy()), leaves(got.to_numpy())
+                    k7_res[policy, block, defer, lb > 0] = dict(
+                        bad=sorted(k for k in w if k not in g or not np.array_equal(w[k], g[k])),
+                        copies=int(k7.count[0]),
+                        trapped=int((want.base.err_code == 12).sum()
+                                    - (src.base.err_code == 12).sum()))
+    res["k7"] = k7_res
     res["launches"] = kernels.launch_counts()
     torch_port_child.dump(res, path)
 
@@ -192,7 +255,31 @@ def test_host_k3_group_matches_plain(res, case):
         assert g["repeats"] > 0
 
 
+@pytest.mark.parametrize("lanes", [17, 3])
+def test_host_k5_matches_plain_and_pow(res, lanes):
+    r = res["k5"][lanes]
+    assert r["plain"] and r["pow"] == []
+
+
+K7_CASES = [(p, b, d, lb) for p in ("fifo", "shallow", "deep", "random", "weighted",
+                                    "coverage", "beam")
+            for b in (16, P_K7) for d in (False, True) for lb in (True, False)]
+
+
+@pytest.mark.parametrize("policy,block,defer,iprof_loops", K7_CASES, ids=[
+    f"{p}-B{b}-{'defer' if d else 'drop'}-{'iprof' if lb else 'bare'}" for p, b, d, lb in K7_CASES])
+def test_host_k7_matches_plain_functional_route(res, policy, block, defer, iprof_loops):
+    r = res["k7"][policy, block, defer, iprof_loops]
+    assert r["bad"] == [] and r["copies"] > 0
+
+
+def test_host_k7_cases_retire_looping_lanes(res):
+    assert sum(r["trapped"] for k, r in res["k7"].items() if k[3]) > 0
+
+
 def test_host_launches_are_counted(res):
     counts = res["launches"]
     assert counts["propagate_sweep"] == 0  # sweep_call alone counts nothing
     assert counts["tape_append"] == 7 and counts["tape_append_group"] == 5
+    # one per expansion through the descriptor; modexp_call counts nothing
+    assert counts["fork_plan"] == len(K7_CASES) and counts["modexp_u256"] == 0

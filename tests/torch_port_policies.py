@@ -15,7 +15,10 @@ their results (``torch_port_child``):
   migration) run twice from one compile, with the frontier saved by
   ``save_frontier`` between the two halves;
 - ``_torch_engine``: the same through the port's plain versions on the
-  CPU, and a sweep of the batch's real frontier; ``_torch_resume`` (once
+  CPU (the fork expansion through its in-place route, and that route held
+  to the plain functional one on every case and on bounded-loops tables
+  the copies hit), and a sweep of the batch's real frontier, the batch's
+  input held unchanged; ``_torch_resume`` (once
   the JAX child is done) loads the JAX checkpoint, runs the second half
   from it, saves both halves through the port's ``save_frontier`` and
   tears the newest file;
@@ -151,6 +154,44 @@ def fork_fields(limits, seed):
         visited=rng.random((2, limits.max_code)) < 0.5)
 
 
+def lb_fields(limits, f, seed):
+    """Bounded-loops tables for the frontier of ``fork_fields`` ``f``: most
+    lanes already hold the entry a backward copy of theirs hits, with
+    counts about the bound; some tables are full, some empty."""
+    rng = np.random.default_rng(seed)
+    P, LBS = len(f["pc"]), limits.loop_slots
+    lb_len = rng.integers(0, LBS + 1, P).astype(np.int32)
+    lb_key = rng.integers(0, 1 << 40, (P, LBS))
+    lb_cnt = rng.integers(0, limits.loop_bound + 2, (P, LBS)).astype(np.int32)
+    lanes = np.nonzero((rng.random(P) < 0.7) & (lb_len > 0))[0]
+    slot = (rng.random(P) * np.maximum(lb_len, 1)).astype(np.int64)[lanes]
+    key = (f["contract_id"].astype(np.int64) * 32768 + f["fork_dest"]) * 32768 + f["pc"] - 1
+    lb_key[lanes, slot] = key[lanes]
+    lb_cnt[lanes, slot] = rng.integers(limits.loop_bound - 1, limits.loop_bound + 1, len(lanes))
+    return dict(lb_len=lb_len, lb_key=lb_key, lb_cnt=lb_cnt)
+
+
+def loop_table_paths(f, oi, ob, limits):
+    """How the backward copies of a plan (``fork_plan_plain``'s rows, as
+    numpy) meet their sources' tables: hits, misses that add an entry,
+    misses on a full table (the coldest slot is reused)."""
+    back = np.nonzero(ob[3])[0]
+    src = oi[0][back]
+    key = (f["contract_id"].astype(np.int64) * 32768 + f["fork_dest"]) * 32768 + f["pc"] - 1
+    live = np.arange(limits.loop_slots)[None, :] < f["lb_len"][src][:, None]
+    hit = np.any(live & (f["lb_key"][src] == key[src][:, None]), axis=1)
+    full = f["lb_len"][src] == limits.loop_slots
+    return dict(hit=int(hit.sum()), grown=int((~hit & ~full).sum()),
+                cold=int((~hit & full).sum()))
+
+
+def differing(want, got):
+    """The leaves of two frontiers' ``leaves`` that differ."""
+    return sorted(k for k in set(want) | set(got)
+                  if k not in want or k not in got or got[k].dtype != want[k].dtype
+                  or not np.array_equal(got[k], want[k]))
+
+
 def migrate_cases():
     """(active, parked) masks over 32 lanes in blocks of 4: the JAX
     package's tests/test_migrate.py layouts, then seeded random ones."""
@@ -274,7 +315,10 @@ def _torch_engine(path):
     from mythril_tpu_torch.disassembler import ContractImage
     from mythril_tpu_torch.ops import u256
     from mythril_tpu_torch.symbolic import SymSpec, make_sym_frontier, sym_run
-    from mythril_tpu_torch.symbolic.engine import (expand_forks, migrate_parked_device,
+    from mythril_tpu_torch.kernels import ForkExpand
+    from mythril_tpu_torch.symbolic.engine import (B_BACK, expand_forks, expand_forks_inplace,
+                                                   expand_forks_plain, fork_plan_plain,
+                                                   migrate_parked_device, own_fork_fields,
                                                    rebalance_parked)
     from mythril_tpu_torch.symbolic.propagate import propagate_feasibility_plain
     from torch_port_batch import leaves
@@ -312,16 +356,61 @@ def _torch_engine(path):
     sf2, inf = propagate_feasibility_plain(sf)
     out["sweep"] = {"frontier": leaves(sf2.to_numpy()), "infeasible": inf.numpy()}
 
-    forks = {}
+    forks, routes = {}, {}
     f = fork_fields(L, FORK_SEEDS[0])
     sf = port_frontier(2, f)
     vis = torch.as_tensor(f["visited"])
+    held = leaves(sf.to_numpy())
+    # the in-place route through one descriptor, as sym_run holds it,
+    # against the plain functional route
+    k7 = ForkExpand(None, 0, "cpu")
     for blk in BLOCKS:
         for pol in POLICIES:
             for defer in (False, True):
                 forks[pol, blk, defer] = leaves(expand_forks(
                     sf, L.loop_bound, blk, pol, defer, vis).to_numpy())
+                plain = leaves(expand_forks_plain(sf, L.loop_bound, blk, pol, defer,
+                                                  vis).to_numpy())
+                inplace = expand_forks_inplace(own_fork_fields(sf), L.loop_bound, blk, pol,
+                                               defer, vis, k7)
+                routes[pol, blk, defer] = (differing(plain, leaves(inplace.to_numpy())),
+                                           differing(plain, forks[pol, blk, defer]))
     out["forks"] = forks
+    out["fork_routes"] = routes
+    out["forks_held"] = differing(held, leaves(sf.to_numpy()))
+    # backward copies that hit, fill and overflow the bounded-loops tables
+    f_lb = dict(f, **lb_fields(L, f, 4))
+    sf_lb = port_frontier(2, f_lb)
+    lb = {}
+    for pol in POLICIES:
+        for defer in (False, True):
+            plain = expand_forks_plain(sf_lb, L.loop_bound, 0, pol, defer, vis)
+            inplace = expand_forks_inplace(own_fork_fields(sf_lb), L.loop_bound, 0, pol, defer,
+                                           vis, k7)
+            b = sf_lb.base
+            oi, ob = fork_plan_plain(b.active, sf_lb.fork_req, sf_lb.con_len, sf_lb.fork_dest,
+                                     b.contract_id, b.pc, b.sp, sf_lb.dropped_forks,
+                                     sf_lb.fork_cslot, sf_lb.call_enum, vis, block=P_UNIT,
+                                     policy=pol, n_con=L.max_constraints, n_stack=L.max_stack,
+                                     defer=defer)
+            lb[pol, defer] = dict(
+                bad=differing(leaves(plain.to_numpy()), leaves(inplace.to_numpy())),
+                trapped=int((ob[B_BACK] & (plain.base.err_code == 12)).sum()),
+                **loop_table_paths(f_lb, oi.numpy(), ob.numpy(), L))
+    out["forks_lb"] = lb
+    # the descriptor's ownership checks: a field shared with another raises,
+    # an expanded view is copied once
+    owned = own_fork_fields(sf)
+    try:
+        k7.bind(owned.replace(caller_sym=owned.callvalue_sym))
+        out["k7_alias"] = None
+    except ValueError as e:
+        out["k7_alias"] = str(e)
+    view = own_fork_fields(sf).replace(mem_havoc=torch.ones(1, dtype=torch.bool).expand(P_UNIT))
+    want = expand_forks_plain(view, L.loop_bound, 0, "fifo", False, vis)
+    got = expand_forks_inplace(view, L.loop_bound, 0, "fifo", False, vis, k7)
+    out["k7_view"] = (differing(leaves(want.to_numpy()), leaves(got.to_numpy())),
+                      got.mem_havoc.is_contiguous(), got.mem_havoc is not view.mem_havoc)
 
     moves = []
     for act, parked in migrate_cases():
@@ -334,10 +423,12 @@ def _torch_engine(path):
     out["moves"] = moves
 
     sf, env, corpus, EL = _torch_engine_batch()
+    held = leaves(sf.to_numpy())
     sf1, vis1 = sym_run(sf, env, corpus, SymSpec(), EL, **ENGINE_KW)
     swept, inf = propagate_feasibility_plain(sf1)
     out["engine"] = {"half1": leaves(sf1.to_numpy()), "vis1": vis1.numpy(),
-                     "swept": leaves(swept.to_numpy()), "infeasible": inf.numpy()}
+                     "swept": leaves(swept.to_numpy()), "infeasible": inf.numpy(),
+                     "held": differing(held, leaves(sf.to_numpy()))}
     torch_port_child.dump(out, path)
 
 

@@ -1,5 +1,7 @@
 """K6's and K3's warp bodies (``kernels/csrc/propagate.cuh``,
-``tape_append.cuh``) built as host C++ with their warps emulated.
+``tape_append.cuh``), K5's quarter-warp body (``modexp.cuh``) and K7's
+per-lane bodies (``fork_expand.cuh``) built as host C++ with their warps
+emulated.
 
 ``g++`` compiles the headers with a shim: ``__device__`` and the like are
 defined away, and a warp runs as a loop over 32 user-level threads
@@ -13,8 +15,13 @@ collective orders shows as a wrong result; a collective that some
 thread does not reach aborts the process. The library
 exports the C entry points of ``propagate_sweep.cu`` and
 ``tape_append.cu`` with their signatures, one warp per lane, lane after
-lane; the CPU tests drive them through the wrappers' own marshaling
-(``kernels.sweep_call``, ``kernels.TapeAppend``).
+lane; ``u256_modexp.cu``'s, a warp per four lanes as on the card; and
+``fork_plan.cu``'s ``fork_expand``, whose plan's sort and scans (a whole
+block's work on the card) run serially here around the kernel's own
+per-lane bodies, then the copy items and the fix-ups one after another.
+The CPU tests drive them through the wrappers' own marshaling
+(``kernels.sweep_call``, ``kernels.TapeAppend``, ``kernels.modexp_call``,
+``kernels.ForkExpand``).
 """
 
 import ctypes
@@ -39,8 +46,17 @@ _SHIM_H = r"""// host build of the CUDA headers' device functions, warps emulate
 #define __constant__
 typedef void* cudaStream_t;
 enum { cudaErrorInvalidValue = 1 };
+#define __grid_constant__
 static inline int __clz(unsigned int x) { return x ? __builtin_clz(x) : 32; }
 static inline int __ffs(int x) { return __builtin_ffs(x); }
+static inline int min(int a, int b) { return a < b ? a : b; }
+static inline int max(int a, int b) { return a > b ? a : b; }
+// one OS thread: no other thread races an update
+static inline int atomicAdd(int* a, int v) {
+  int old = *a;
+  *a = old + v;
+  return old;
+}
 
 // A warp as 32 user-level threads on one OS thread: each runs until it
 // reaches a collective, the next one then runs, and when all 32 wait at
@@ -135,6 +151,11 @@ static inline int __shfl_sync(unsigned, int v, int src) {
 """
 
 _ENTRIES_CPP = r"""
+#include <algorithm>
+#include <vector>
+
+#include "fork_expand.cuh"
+#include "modexp.cuh"
 #include "propagate.cuh"
 #include "tape_append.cuh"
 
@@ -176,11 +197,70 @@ extern "C" int tape_append_group(const uint64_t* tape, int T, const int32_t* op,
     });
   return 0;
 }
+
+// as u256_modexp.cu: 8 threads a lane, four lanes a warp; the groups past
+// the last lane compute 0 ** 0 mod 1 with the others
+extern "C" int modexp_u256(const int64_t* base, const int64_t* e, const int64_t* m,
+                           int64_t* out, int n, void*) {
+  for (int w = 0; w < (n + 3) / 4; ++w) {
+    uint32_t tab[4][16 * 8];
+    run_warp([&](int t) {
+      const int p = 4 * w + (t >> 3);
+      const k5::Group G{t & 7, t & 24};
+      const bool live = p < n;
+      const int64_t at = 8 * (int64_t)p + G.g;
+      const uint32_t b = live ? (uint32_t)base[at] : 0u;
+      const uint32_t ee = live ? (uint32_t)e[at] : 0u;
+      const uint32_t mm = live ? (uint32_t)m[at] : (G.g == 0 ? 1u : 0u);
+      const uint32_t r = k5::modexp(G, b, ee, mm, tab[t >> 3]);
+      if (live) out[at] = (int64_t)r;
+    });
+  }
+  return 0;
+}
+
+// fork_plan.cu's entry point: the plan's sort and scans serially, then the
+// kernels' per-lane plan, every copy item and every lane's fix-ups
+extern "C" int fork_expand(const uint64_t* ptrs, const int32_t* ints, void*) {
+  using namespace k7;
+  const int P = ints[I_P], B = ints[I_B];
+  if (P <= 0) return 0;
+  if (B <= 0 || P % B || ints[I_N_FIELDS] > MAX_FIELDS) return cudaErrorInvalidValue;
+  const Plan q = make_plan(ptrs, ints);
+  *q.count = 0;
+  std::vector<int32_t> skey(B), rank(B), frank(B);
+  for (int base = 0; base < P; base += B) {
+    int n_req = 0, n_free = 0;
+    for (int l = 0; l < B; ++l) {
+      skey[l] = packed_key(q, base, l);
+      n_req += q.fork_req[base + l] && q.active[base + l];
+      frank[l] = n_free;
+      n_free += !q.active[base + l];
+    }
+    std::sort(skey.begin(), skey.end());
+    for (int i = 0; i < B; ++i) rank[skey[i] % B] = i;
+    const int n_adm = q.policy == POL_BEAM ? min(n_free, max(1, B / 4)) : n_free;
+    const int n_admit = min(n_adm, n_req);
+    const int pos0 = *q.count;
+    *q.count += n_admit;
+    for (int l = 0; l < B; ++l)
+      finish_lane(q, base, l, frank[l], rank[l], skey.data(), n_adm, n_admit, pos0);
+  }
+  const CopyTable t = make_copy(ptrs, ints);
+  const int64_t n = *t.count;
+  for (int64_t w = 0; w < n * t.n_chunks; ++w) copy_big(t, w, 0, 1);
+  if (t.op_hist)
+    for (int64_t w = 0; w < n; ++w) copy_hist(t, w, 0, 1);
+  for (int64_t w = 0; w < n * (t.n_fields - t.n_big); ++w) copy_small(t, w);
+  const Fix x = make_fix(ptrs, ints);
+  for (int p = 0; p < P; ++p) fix_lane(x, p);
+  return 0;
+}
 """
 
 
 def build(tmp=None) -> str:
-    """Compile the K6 and K3 bodies with g++ into ``tmp``; -> the
+    """Compile the K6, K3, K5 and K7 bodies with g++ into ``tmp``; -> the
     library's path."""
     tmp = tmp or tempfile.mkdtemp(prefix="warp_host_")
     inc = os.path.join(tmp, "shim")
@@ -205,4 +285,6 @@ def load(path):
     lib = ctypes.CDLL(path)
     kernels.bind_propagate_sweep(lib)
     kernels.bind_tape_append(lib)
+    kernels.bind_modexp(lib)
+    kernels.bind_fork_expand(lib)
     return lib
