@@ -3,7 +3,7 @@
     python3 chip_smoke.py            # all phases (needs one CUDA device)
     python3 chip_smoke.py --kernels  # build + kernel checks only
     python3 chip_smoke.py --campaign # build + the campaign phase only
-    python3 chip_smoke.py --parent-k6 SRC ...  # also time another tree's K6 and K5
+    python3 chip_smoke.py --parent-k6 SRC ...  # also time another tree's K1, K5, K6, K9, K10
 
 Phases, each fatal on failure:
 
@@ -17,11 +17,15 @@ Phases, each fatal on failure:
    (K1-K4 and K6-K9 at the main path's width, P = 2048 lanes; K5 at the
    main path's compacted shape, one lane, and on 64 lanes of edge and
    random operands), seeded random inputs plus edge cases; bit-for-bit
-   equality is required, and K4/K5/K8/K9 also against hashlib / Python's
-   ints. ptxas's register and spill lines for K3, K5, K6 and K7 (K5 must
-   have no stack frame and no spill). K3's group entry point against R
-   sequential
-   plain appends on its edge cases (``group_cases``: the SHA3 chain
+   equality is required, and K1/K4/K5/K8/K9 also against hashlib /
+   Python's ints. K1 and K9 also on the rare branches of their division
+   core and EXP's fast paths (``DIVMOD_CASES``, ``MODWIDE_CASES``,
+   ``EXP_CASES``: the add-back, the digit cap, the second-limb
+   correction, one-limb divisors, k e = 255 and 256, ...). ptxas's
+   register and spill lines for K1, K3, K5, K6, K7, K9 and K10 (K1, K5
+   and K9 must have no stack frame and no spill, and K10 no spill). K3's
+   group entry point against R sequential plain appends on its edge
+   cases (``group_cases``: the SHA3 chain
    masked off mid-chain, the binary op's CONST, CONST and node, rows
    repeating earlier rows of their group, a forged fingerprint
    collision, random sources, masked-off lanes, overflows mid-group).
@@ -29,8 +33,10 @@ Phases, each fatal on failure:
    clipped ids) and on the frontier of a real batch just before a sweep;
    with ``--parent-k6 SRC`` also another tree's propagate_sweep.cu (say
    the parent commit's, unpacked in an ignored directory) and the
-   u256_modexp.cu beside it, built here and timed on the same inputs in
-   turns with this tree's K6 and K5. K7, the whole fork expansion in
+   u256_modexp.cu, u256_divmod.cu, u256_mulmod_exp.cu and evm_step.cu
+   beside it, built here and timed on the same inputs in turns with this
+   tree's K6, K5, K1, K9 (mod_wide, exp) and K10 (the ERC-20 run and the
+   stress dispatch by opcode class). K7, the whole fork expansion in
    place through its descriptor, against the plain functional route
    (``expand_forks_plain``) over every leaf of a P = 2048 frontier (every
    field random rows, bounded-loops tables the copies hit), for each
@@ -96,7 +102,10 @@ Phases, each fatal on failure:
    the loop's entry point (torch.profiler over expansions in a row: at
    most 3 kernel launches and 10 other device ops an expansion); and a
    torch.profiler window (16 supersteps of the batch) for the device's
-   busy share and its top kernels;
+   busy share and its top kernels; the EXP lanes K10's dispatch runs, by
+   ``exp8``'s path (``exp_paths``), in phase 7's held-input run, phase
+   9's five short strategies and its checkpointed arith run, and the
+   unpipelined campaign;
 10. concrete path, run first after the kernel checks: ``run`` on the
    ERC-20 transfer workload (4096 lanes, default limits, 256 steps), one
    fused K10 launch a superstep in place on fields copied once, the
@@ -703,6 +712,87 @@ def square_multiply_steps(e: int) -> int:
     return max(0, e.bit_length() - 1 + bin(e).count("1") - 1)
 
 
+# exp8's paths (u256.cuh), in the order it tries them: the four exact
+# fast paths, then the general chain
+EXP_PATHS = ("e_zero", "base_01", "pow2", "even_big", "chain")
+
+
+def exp_path(base: int, e: int) -> str:
+    """The path ``exp8`` takes for (base, e)."""
+    if e == 0:
+        return "e_zero"
+    if base <= 1:
+        return "base_01"
+    low = (base & -base).bit_length() - 1
+    if low == base.bit_length() - 1:
+        return "pow2"
+    if low > 0 and low * e >= 256:
+        return "even_big"
+    return "chain"
+
+
+def exp_ops(base: int, e: int) -> int:
+    """32-bit operations base ** e mod 2^256 needs: none where the result
+    follows from the operands' bits (``exp_path`` not "chain"), else a
+    left-to-right square-and-multiply whose squarings take 20 multiply-adds
+    (the 16 products below the diagonal, doubled, and 4 squares) and whose
+    multiplies take 36, 4 operations each."""
+    if exp_path(base, e) != "chain":
+        return 0
+    return ((e.bit_length() - 1) * 20 + (bin(e).count("1") - 1) * 36) * 4
+
+
+def exp_path_index(base, e):
+    """``exp_path`` of every lane of [P, 8] words (int64 carriers of
+    32-bit limbs) as an index into EXP_PATHS, on the words' device, with
+    no host read."""
+    import torch
+
+    nz = base != 0
+    low_limb = nz.int().argmax(1)
+    limb = base.gather(1, low_limb[:, None])[:, 0]
+    low = low_limb * 32 + torch.log2((limb & -limb).clamp(min=1).double()).long()
+    pow2 = (nz.sum(1) == 1) & ((limb & (limb - 1)) == 0)
+    e_small = (e[:, 1:] == 0).all(1) & (e[:, 0] < 256)
+    paths = ((e == 0).all(1), (base[:, 1:] == 0).all(1) & (base[:, 0] <= 1), pow2,
+             (low > 0) & (~e_small | (low * e[:, 0] >= 256)))
+    idx = torch.full_like(low, len(EXP_PATHS) - 1)
+    for i in reversed(range(len(paths))):
+        idx = torch.where(paths[i], i, idx)
+    return idx
+
+
+@contextlib.contextmanager
+def exp_paths(what):
+    """Count, by ``exp8``'s path, the EXP lanes that K10's dispatch runs
+    inside the block (their operands read on the device before each
+    launch, one host read at the end) and print the counts."""
+    import torch
+    from mythril_tpu_torch import kernels
+    from mythril_tpu_torch.core import interpreter as ci
+
+    dispatch = kernels.evm_dispatch
+    counts = []
+
+    def counting(f, env, corpus, op, run, old_pc, skip=None, k10=None):
+        lanes = run & (ci.Tables.on(op.device).CLASS[op.long()] == ci.CLS_EXP)
+        if skip is not None:
+            lanes = lanes & ~skip
+        idx = exp_path_index(ci._peek(f, 0), ci._peek(f, 1))
+        counts.append(torch.zeros(len(EXP_PATHS), dtype=torch.int64, device=op.device)
+                      .index_add_(0, idx, lanes.long()))
+        return dispatch(f, env, corpus, op, run, old_pc, skip, k10)
+
+    kernels.evm_dispatch = counting
+    try:
+        yield
+    finally:
+        kernels.evm_dispatch = dispatch
+    got = dict(zip(EXP_PATHS, torch.stack(counts).sum(0).tolist() if counts
+                   else [0] * len(EXP_PATHS)))
+    print(f"[8] EXP lanes through K10 by exp8's path, {what}: {json.dumps(got)}", flush=True)
+
+
 def words_tensor(vals, dev):
     import torch
     from mythril_tpu_torch.ops import u256
@@ -710,17 +800,137 @@ def words_tensor(vals, dev):
     return torch.as_tensor(u256.from_ints(vals).astype(np.int64), device=dev)
 
 
-def check_k1(dev, rng):
+# The rare branches of the division core (u256.cuh `divrem`: Knuth's
+# algorithm D over 32-bit limbs) and EXP's fast paths, each case with the
+# branch it reaches; tests/test_torch_u256_host.py's model of the
+# algorithm asserts that it does. K1: (name, x, d, branch); K9's
+# mod_wide: (name, a, b, m, "mulmod" or "addmod", branch), the 512-bit
+# product or 257-bit sum reduced mod m; K9's exp: (name, base, e, path).
+# "digits" is the general digit loop with no rare branch.
+ADDBACK = ((0x7fffffff_80000000_00000000_00000000, 0x80000000_00000000_00000001),
+           (0x00000001_80000000_00000000_00000003, 0x20000000_00000000_00000001))
+CAP = (0x800000007ffffffe0000000166dfe717c1731339, 0x80000000ffffffff)
+CORR1 = (0x150df4e6d437d39a55e41634fffffffe, 0x80000001ffffffff)
+CORR2 = (0x7b0b1d225c4efd221b995374, 0x80000001ffffffff)
+DIVMOD_CASES = (
+    ("div_by_zero", 5, 0, "zero"),
+    ("zero_by_zero", 0, 0, "zero"),
+    ("max_by_zero", W256, 0, "zero"),
+    ("x_below_d", 7, 1 << 200, "below"),
+    ("zero_by_d", 0, 12345, "below"),
+    ("x_equals_d", (1 << 200) + 99, (1 << 200) + 99, "digits"),
+    ("exact_multiple", ((1 << 130) + 3) * 0xFFFF_FFFF_0000_0001, (1 << 130) + 3, "digits"),
+    ("one_limb", W256, 7, "one_limb"),
+    ("one_limb_max", W256, 0xFFFFFFFF, "one_limb"),
+    ("one_limb_top_bit", 1 << 255, 0x80000000, "one_limb"),
+    ("by_one", (1 << 255) + 12345, 1, "one_limb"),
+    ("selector_prologue", (0xa9059cbb << 224) | 12345, 1 << 224, "digits"),
+    ("top_limb_1", W256, (1 << 224) + 12345, "digits"),
+    ("top_limb_ffffffff", W256, (0xFFFFFFFF << 224) | 12345, "digits"),
+    ("max_by_max", W256, W256, "digits"),
+    ("sdiv_overflow_unsigned", 1 << 255, W256, "below"),
+    ("cap", CAP[0], CAP[1], "cap"),
+    ("second_limb_once", CORR1[0], CORR1[1], "corr1"),
+    ("second_limb_twice", CORR2[0], CORR2[1], "corr2"),
+    ("addback_a", ADDBACK[0][0], ADDBACK[0][1], "addback"),
+    ("addback_b", ADDBACK[1][0], ADDBACK[1][1], "addback"),
+    ("addback_a_2^128", ADDBACK[0][0] << 128, ADDBACK[0][1] << 128, "addback"),
+    ("addback_b_2^128", ADDBACK[1][0] << 128, ADDBACK[1][1] << 128, "addback"),
+)
+MODWIDE_CASES = (
+    ("mulmod_m_zero", W256, W256, 0, "mulmod", "zero"),
+    ("mulmod_m_one", W256, 3, 1, "mulmod", "one_limb"),
+    ("mulmod_below", 3, 5, 1 << 200, "mulmod", "below"),
+    ("mulmod_one_limb", W256, W256 - 1, 0xFFFFFFFB, "mulmod", "one_limb"),
+    ("mulmod_max_squared_by_max", W256, W256, W256, "mulmod", "addback"),
+    ("mulmod_top_limb_1", W256, W256, (1 << 224) + 1, "mulmod", "digits"),
+    ("mulmod_top_limb_ffffffff", W256, 1 << 255, (0xFFFFFFFF << 224) | 7, "mulmod", "digits"),
+    ("mulmod_cap", CAP[0], 1, CAP[1], "mulmod", "cap"),
+    ("mulmod_second_limb_twice", CORR2[0], 1, CORR2[1], "mulmod", "corr2"),
+    ("mulmod_addback_a", ADDBACK[0][0], 1, ADDBACK[0][1], "mulmod", "addback"),
+    ("mulmod_addback_b", ADDBACK[1][0], 1, ADDBACK[1][1], "mulmod", "addback"),
+    ("mulmod_addback_a_2^128", ADDBACK[0][0] << 128, 1 << 128, ADDBACK[0][1] << 128, "mulmod",
+     "addback"),
+    ("mulmod_addback_b_2^128", ADDBACK[1][0] << 128, 1 << 128, ADDBACK[1][1] << 128, "mulmod",
+     "addback"),
+    ("addmod_carry", W256, W256, W256 - 1, "addmod", "digits"),
+    ("addmod_carry_small_m", W256, 2, 10, "addmod", "one_limb"),
+    ("addmod_m_zero", W256, W256, 0, "addmod", "zero"),
+)
+EXP_CASES = (
+    ("zero_to_zero", 0, 0, "e_zero"),
+    ("max_to_zero", W256, 0, "e_zero"),
+    ("zero_base", 0, 5, "base_01"),
+    ("one_base", 1, W256, "base_01"),
+    ("two_to_255", 2, 255, "pow2"),
+    ("two_to_256", 2, 256, "pow2"),
+    ("two_to_2^32_plus_1", 2, (1 << 32) + 1, "pow2"),
+    ("2^85_to_3", 1 << 85, 3, "pow2"),
+    ("2^64_to_4", 1 << 64, 4, "pow2"),
+    ("0x100_to_31", 0x100, 31, "pow2"),
+    ("0x100_to_32", 0x100, 32, "pow2"),
+    ("2^255_to_1", 1 << 255, 1, "pow2"),
+    ("six_to_255", 6, 255, "chain"),
+    ("six_to_256", 6, 256, "even_big"),
+    ("twelve_to_128", 12, 128, "even_big"),
+    ("twelve_to_127", 12, 127, "chain"),
+    ("ten_to_2^200", 10, 1 << 200, "even_big"),
+    ("ten_to_18", 10, 18, "chain"),
+    ("three_to_max", 3, W256, "chain"),
+    ("max_to_max", W256, W256, "chain"),
+    ("odd_to_256_bit", 0x1234567890abcdef_fedcba0987654321_0f1e2d3c4b5a6978_1357913579135791,
+     (1 << 255) + 0xdeadbeef, "chain"),
+    ("max_to_one", W256, 1, "chain"),
+    # the chain's 2-bit windows: digits 1, 2 and 3, and a top window of
+    # one bit in a higher limb above windows of 0
+    ("seven_to_0b11011", 7, 0b11011, "chain"),
+    ("three_to_2^32", 3, 1 << 32, "chain"),
+)
+
+
+def u256_call(fn, dev, ins, out_shapes):
+    """One launch of a K1 or K9 entry point ``fn`` of a loaded library (the
+    parent tree's, under ``--parent-k6``) on PyTorch's current stream ->
+    its outputs, allocated here."""
+    import torch
+
+    outs = [torch.empty(s, dtype=torch.int64, device=dev) for s in out_shapes]
+    err = fn(*(t.data_ptr() for t in ins + outs), ins[0].shape[0],
+             torch.cuda.current_stream(dev).cuda_stream)
+    if err:
+        fail(f"parent kernel launch failed with CUDA error {err}")
+    return outs
+
+
+def turns(name, kernel, this, old, reps, dev_reps=20) -> dict:
+    """``this`` and the parent tree's ``old`` timed on the same inputs in
+    turns (parent, this, this, parent; CUDA events), and on the device
+    alone (torch.profiler) -> printed and returned."""
+    t = [time_ms(f, reps) for f in (old, this, this, old)]
+    d = [kernel_device_ms(f, kernel, dev_reps) for f in (old, this)]
+    print(f"[3] {name}, the parent's and this tree's on the same inputs in turns (parent, this, "
+          f"this, parent): {' / '.join(f'{x:.4f}' for x in t)} ms; on the device parent "
+          f"{d[0]:.4f}, this {d[1]:.4f} ms", flush=True)
+    return dict(turns=t, parent_device_ms=d[0], device_ms=d[1])
+
+
+def check_k1(dev, rng, parent_lib=None):
+    """K1 at P = 2048: edge words, the rare branches of the division core
+    (``DIVMOD_CASES``) and seeded random words, against its plain version
+    and Python's ints; SDIV through it against the plain signed division;
+    with ``--parent-k6 SRC`` timed against the parent tree's K1 in turns."""
     import torch
     from mythril_tpu_torch import kernels
     from mythril_tpu_torch.ops import u256
 
     M = (1 << 256) - 1
     edge = [0, 1, 2, 1 << 255, M, M - 1, (1 << 255) - 1, (1 << 128) + 7]
+    cases = [c[1:3] for c in DIVMOD_CASES]
     rand = [int.from_bytes(rng.bytes(32), "big") >> int(rng.integers(0, 256))
             for _ in range(2 * P_MAIN)]
-    a_vals = edge + rand[:P_MAIN - len(edge)]
-    b_vals = [0, 0, 3, M, M, 1, (1 << 255), 0] + rand[P_MAIN:2 * P_MAIN - 8]
+    n = P_MAIN - len(edge) - len(cases)
+    a_vals = edge + [x for x, _ in cases] + rand[:n]
+    b_vals = [0, 0, 3, M, M, 1, (1 << 255), 0] + [d for _, d in cases] + rand[P_MAIN:P_MAIN + n]
     # SDIV overflow: -2^255 / -1
     a_vals[-1], b_vals[-1] = 1 << 255, M
     a, b = words_tensor(a_vals, dev), words_tensor(b_vals, dev)
@@ -735,14 +945,19 @@ def check_k1(dev, rng):
     sd = torch.where(u256.is_zero(b)[:, None], 0,
                      torch.where((na != nb)[:, None], u256.neg(qa), qa))
     err = max(err, max_abs_err(sd, u256.sdiv(a, b)))
-    # python ints as the final word on a sample
-    for i in list(range(8)) + [P_MAIN - 1]:
-        x, y = a_vals[i], b_vals[i]
-        want = (x // y, x % y) if y else (0, 0)
-        got = (u256.to_int(q[i].cpu().numpy()), u256.to_int(r[i].cpu().numpy()))
-        if got != want:
-            fail(f"K1 lane {i}: {got} != {want}")
-    ms = time_ms(lambda: kernels.divmod_u256(a, b), 50)
+    # python ints as the final word on every lane
+    for i, (x, y, gq, gr) in enumerate(zip(a_vals, b_vals, u256.to_ints(q), u256.to_ints(r))):
+        if (gq, gr) != ((x // y, x % y) if y else (0, 0)):
+            fail(f"K1 lane {i} ({x}, {y}) disagrees with Python ints")
+    this = lambda: kernels.divmod_u256(a, b)
+    ms = time_ms(this, 50)
+    print(f"[3] divmod_u256: {len(cases)} rare-branch cases bit-exact; {ms:.4f} ms, device "
+          f"{kernel_device_ms(this, 'divmod_u256_kernel', 20):.4f} ms", flush=True)
+    if parent_lib is not None:
+        old = lambda: u256_call(parent_lib.divmod_u256, dev, [a, b], [a.shape, a.shape])
+        if any(not torch.equal(x, y) for x, y in zip(old(), (q, r))):
+            fail("K1: the parent's K1 disagrees")
+        turns("divmod_u256", "divmod_u256_kernel", this, old, 50)
     plain_ms = time_ms(lambda: u256.divmod_u(a, b), 2)
     nbytes = 4 * P_MAIN * 8 * 8  # a, b in; q, r out (int64 carriers)
     ops = sum(longdiv_ops(x, y) for x, y in zip(a_vals, b_vals))
@@ -1206,44 +1421,86 @@ def check_k8(dev, rng):
                 plain_ms=plain_ms, nbytes=P_MAIN * 3 * 64, ops=P_MAIN * 64 * 4)
 
 
-def check_k9(dev, rng):
+def check_k9(dev, rng, parent_lib=None):
+    """K9's mod_wide (MULMOD's 512-bit products and ADDMOD's 257-bit sums)
+    and exp at P = 2048: K8's edge and random words, with the rare
+    branches of the division core and EXP's fast paths and their
+    neighbours (``MODWIDE_CASES``, ``EXP_CASES``) in the last lanes,
+    against the plain versions and Python's ints; with ``--parent-k6 SRC``
+    both timed against the parent tree's K9 in turns."""
     import torch
     from mythril_tpu_torch import kernels
     from mythril_tpu_torch.ops import u256
 
     a_v, b_v, m_v, e_v = product_words(rng)
-    a, b, m, e = (words_tensor(v, dev) for v in (a_v, b_v, m_v, e_v))
+    ncase = len(MODWIDE_CASES)
+    a_v[-ncase:] = [c[1] for c in MODWIDE_CASES]
+    b_v[-ncase:] = [c[2] for c in MODWIDE_CASES]
+    m_v[-ncase:] = [c[3] for c in MODWIDE_CASES]
+    add_lanes = [P_MAIN - ncase + i for i, c in enumerate(MODWIDE_CASES) if c[4] == "addmod"]
+    x_v = list(a_v)
+    x_v[-len(EXP_CASES):] = [c[1] for c in EXP_CASES]
+    e_v[-len(EXP_CASES):] = [c[2] for c in EXP_CASES]
+    a, b, m, e, x0 = (words_tensor(v, dev) for v in (a_v, b_v, m_v, e_v, x_v))
     wide = u256.mul_wide(a, b)
-    r = kernels.mod_wide_u256(wide, m)
-    err_mod = max_abs_err(r, u256._mod_wide(wide, m))
-    x = kernels.exp_u256(a, e)
-    err_exp = max_abs_err(x, u256.exp(a, e))
-    got_r, got_x = u256.to_ints(r), u256.to_ints(x)
-    for i in range(P_MAIN):
-        if got_r[i] != ((a_v[i] * b_v[i]) % m_v[i] if m_v[i] else 0):
-            fail(f"K9 mod_wide lane {i} disagrees with Python ints")
-        if i < 64 and got_x[i] != pow(a_v[i], e_v[i], 1 << 256):
-            fail(f"K9 exp lane {i} disagrees with Python ints")
-    # ADDMOD's 9-limb sums through the same entry point
+    # the ADDMOD cases' lanes take the 257-bit sum
     s, c = u256.add_carry(a, b)
     wide_add = torch.cat([s, c.to(s.dtype)[:, None], torch.zeros_like(s)[:, :7]], dim=1)
+    lanes = torch.tensor(add_lanes, device=dev)
+    wide[lanes] = wide_add[lanes]
+    r = kernels.mod_wide_u256(wide, m)
+    err_mod = max_abs_err(r, u256._mod_wide(wide, m))
+    x = kernels.exp_u256(x0, e)
+    err_exp = max_abs_err(x, u256.exp(x0, e))
+    got_r, got_x = u256.to_ints(r), u256.to_ints(x)
+    for i in range(P_MAIN):
+        w = a_v[i] + b_v[i] if i in add_lanes else a_v[i] * b_v[i]
+        if got_r[i] != (w % m_v[i] if m_v[i] else 0):
+            fail(f"K9 mod_wide lane {i} disagrees with Python ints")
+        if got_x[i] != pow(x_v[i], e_v[i], 1 << 256):
+            fail(f"K9 exp lane {i} disagrees with Python ints")
+    # ADDMOD's 9-limb sums of every lane through the same entry point
     err_mod = max(err_mod, max_abs_err(kernels.mod_wide_u256(wide_add, m),
                                        u256._mod_wide(wide_add, m)))
-    ms_mod = time_ms(lambda: kernels.mod_wide_u256(wide, m), 20)
+    this_mod = lambda: kernels.mod_wide_u256(wide, m)
+    this_exp = lambda: kernels.exp_u256(x0, e)
+    ms_mod, ms_exp = time_ms(this_mod, 20), time_ms(this_exp, 20)
+    print(f"[3] mod_wide_u256 / exp_u256: {ncase} / {len(EXP_CASES)} rare-branch cases "
+          f"bit-exact; {ms_mod:.4f} / {ms_exp:.4f} ms, device "
+          f"{kernel_device_ms(this_mod, 'mod_wide_kernel', 20):.4f} / "
+          f"{kernel_device_ms(this_exp, 'exp_kernel', 20):.4f} ms", flush=True)
+    if parent_lib is not None:
+        old_mod = lambda: u256_call(parent_lib.u256_mod_wide, dev, [wide, m], [m.shape])[0]
+        old_exp = lambda: u256_call(parent_lib.u256_exp, dev, [x0, e], [e.shape])[0]
+        if not torch.equal(old_mod(), r) or not torch.equal(old_exp(), x):
+            fail("K9: the parent's K9 disagrees")
+        turns("mod_wide_u256", "mod_wide_kernel", this_mod, old_mod, 20)
+        turns("exp_u256", "exp_kernel", this_exp, old_exp, 20)
     plain_mod = time_ms(lambda: u256._mod_wide(wide, m), 1)
-    ms_exp = time_ms(lambda: kernels.exp_u256(a, e), 20)
-    plain_exp = time_ms(lambda: u256.exp(a, e), 1)
-    # the remainder of each lane's 512-bit product by its m; EXP's low
-    # products (36 multiply-adds of 4 operations each)
-    mod_ops = sum(longdiv_ops(x * y, z) for x, y, z in zip(a_v, b_v, m_v))
-    exp_ops = sum(square_multiply_steps(v) for v in e_v) * 36 * 4
+    plain_exp = time_ms(lambda: u256.exp(x0, e), 1)
+    # the remainder of each lane's 512-bit product (or 257-bit sum) by its
+    # m; each lane's EXP as much as its operands need (``exp_ops``)
+    mod_ops = sum(longdiv_ops(x + y if i in add_lanes else x * y, z)
+                  for i, (x, y, z) in enumerate(zip(a_v, b_v, m_v)))
+    ops_exp = sum(exp_ops(b, v) for b, v in zip(x_v, e_v))
+    paths = [exp_path(b, v) for b, v in zip(x_v, e_v)]
+    got_paths = exp_path_index(x0, e).tolist()
+    if [EXP_PATHS[i] for i in got_paths] != paths:
+        fail("exp_path_index disagrees with exp_path on K9's exp lanes")
+    # the earlier count (every lane a full chain of 36-product steps),
+    # printed beside the bound for comparison only
+    ops_pr4 = sum(square_multiply_steps(v) for v in e_v) * 36 * 4
+    print(f"[3] exp_u256 lanes by exp8's path: "
+          f"{json.dumps({p: paths.count(p) for p in EXP_PATHS})}; operations bound "
+          f"{ops_exp / INT32_OPS_PER_S * 1e3:.7f} ms (full-chain count: "
+          f"{ops_pr4 / INT32_OPS_PER_S * 1e3:.7f} ms)", flush=True)
     src = "mythril_tpu_torch/kernels/csrc/u256_mulmod_exp.cu"
     return [dict(name="mod_wide_u256", source=src, replaces="mythril_tpu/ops/u256.py:372",
                  max_abs_err=err_mod, ms=ms_mod, plain_ms=plain_mod,
                  nbytes=P_MAIN * (128 + 64 + 64), ops=mod_ops),
             dict(name="exp_u256", source=src, replaces="mythril_tpu/ops/u256.py:436",
                  max_abs_err=err_exp, ms=ms_exp, plain_ms=plain_exp,
-                 nbytes=P_MAIN * 3 * 64, ops=exp_ops)]
+                 nbytes=P_MAIN * 3 * 64, ops=ops_exp)]
 
 
 def sweep_snapshot(dev):
@@ -1382,13 +1639,38 @@ def _sweep_args(sf):
             sf.con_node, sf.con_sign, sf.con_len]
 
 
+# the libraries whose ptxas lines phase 3 prints
+PTXAS_SOURCES = ("propagate_sweep", "tape_append", "u256_modexp", "fork_plan", "u256_divmod",
+                 "u256_mulmod_exp", "evm_step")
+# a parent tree's libraries built beside this tree's under --parent-k6
+PARENT_SOURCES = ("propagate_sweep", "u256_modexp", "u256_divmod", "u256_mulmod_exp", "evm_step")
+
+
+def ptxas_frames(lines) -> dict:
+    """{function: (stack frame, spill stores, spill loads) bytes} from
+    ptxas's lines."""
+    import re
+
+    out, fn = {}, None
+    for ln in lines:
+        m = re.search(r"Function properties for (\S+)", ln)
+        if m:
+            fn = m.group(1)
+        elif "stack frame" in ln and fn:
+            out[fn] = tuple(int(x) for x in re.findall(r"(\d+) bytes", ln))
+            fn = None
+    return out
+
+
 def ptxas_builds(parent_src=None):
-    """This tree's K3, K5, K6 and K7 sources and, with ``--parent-k6 SRC``,
-    the parent tree's K6 (SRC, in a copy of that tree's ``csrc/``) and K5
-    (``u256_modexp.cu`` beside it), built with nvcc and ``-Xptxas=-v``
-    into a temporary directory, all at once. ptxas must report no stack
-    frame and no spill for K5. -> ({parent build: its library},
-    {build: ptxas's register and spill lines})."""
+    """This tree's K1, K3, K5, K6, K7, K9 and K10 sources and, with
+    ``--parent-k6 SRC``, the parent tree's K6 (SRC, in a copy of that
+    tree's ``csrc/``) and its K5, K1, K9 and K10 (``u256_modexp.cu``,
+    ``u256_divmod.cu``, ``u256_mulmod_exp.cu``, ``evm_step.cu`` beside it),
+    built with nvcc and ``-Xptxas=-v`` into a temporary directory, all at
+    once. ptxas must report no stack frame and no spill for K1, K5 and K9,
+    and no spill for any of K10's entry points. Prints ptxas's register
+    and spill lines. -> {parent build: its library}."""
     import ctypes
     import tempfile
 
@@ -1397,12 +1679,11 @@ def ptxas_builds(parent_src=None):
     nvcc = kernels._nvcc()
     tmp = tempfile.mkdtemp(prefix="chip_smoke_ptxas_")
     csrc = os.path.join(ROOT, "mythril_tpu_torch", "kernels", "csrc")
-    srcs = {name: os.path.join(csrc, f"{name}.cu")
-            for name in ("propagate_sweep", "tape_append", "u256_modexp", "fork_plan")}
+    srcs = {name: os.path.join(csrc, f"{name}.cu") for name in PTXAS_SOURCES}
     if parent_src:
-        srcs["parent propagate_sweep"] = os.path.abspath(parent_src)
-        srcs["parent u256_modexp"] = os.path.join(os.path.dirname(os.path.abspath(parent_src)),
-                                                  "u256_modexp.cu")
+        pdir = os.path.dirname(os.path.abspath(parent_src))
+        for name in PARENT_SOURCES:
+            srcs[f"parent {name}"] = os.path.join(pdir, f"{name}.cu")
     procs = {name: subprocess.Popen(
         [nvcc, "-Xptxas=-v", *kernels.NVCC_FLAGS, "-o",
          os.path.join(tmp, name.replace(" ", "_") + ".so"), src],
@@ -1413,21 +1694,27 @@ def ptxas_builds(parent_src=None):
         if proc.returncode != 0:
             fail(f"nvcc {srcs[name]}:\n{out[-3000:]}")
         logs[name] = [ln.strip() for ln in out.splitlines()
-                      if "entry function" in ln or "spill" in ln or "Used" in ln]
-    frames = [ln for ln in logs["u256_modexp"] if "stack frame" in ln]
-    if not frames or any(not ln.startswith("0 bytes stack frame, 0 bytes spill stores, "
-                                           "0 bytes spill loads") for ln in frames):
-        fail(f"K5: ptxas reports a stack frame or spills: {frames}")
+                      if "entry function" in ln or "Function properties" in ln or "spill" in ln
+                      or "Used" in ln]
+        for ln in logs[name]:
+            print(f"[3] ptxas {name}: {ln}", flush=True)
+    for k, name in (("K1", "u256_divmod"), ("K5", "u256_modexp"), ("K9", "u256_mulmod_exp")):
+        frames = ptxas_frames(logs[name])
+        if not frames or any(f != (0, 0, 0) for f in frames.values()):
+            fail(f"{k}: ptxas reports a stack frame or spills: {frames}")
+    k10 = ptxas_frames(logs["evm_step"])
+    if not k10 or any(st or ld for _, st, ld in k10.values()):
+        fail(f"K10: ptxas reports spills (stack frame, spill stores, spill loads): {k10}")
+    binders = {"propagate_sweep": kernels.bind_propagate_sweep, "u256_modexp": kernels.bind_modexp,
+               "u256_divmod": kernels.bind_divmod, "u256_mulmod_exp": kernels.bind_mulmod_exp,
+               "evm_step": kernels.bind_evm_step}
     libs = {}
     for name in srcs:
         if name.startswith("parent "):
             lib = ctypes.CDLL(os.path.join(tmp, name.replace(" ", "_") + ".so"))
-            if "sweep" in name:
-                kernels.bind_propagate_sweep(lib)
-            else:
-                kernels.bind_modexp(lib)
+            binders[name[len("parent "):]](lib)
             libs[name] = lib
-    return libs, logs
+    return libs
 
 
 def argv_value(flag: str):
@@ -1759,9 +2046,9 @@ def step_bytes(f, op, run) -> int:
 def step_ops(f, op, run) -> int:
     """32-bit integer operations of this step's arithmetic lanes (the
     rest is byte movement): DIV/MOD and ADDMOD/MULMOD a schoolbook long
-    division (``longdiv_ops``), MUL 64 multiply-adds, EXP its
-    square-and-multiply products (36 multiply-adds each), SHA3 ~200
-    64-bit operations per round per absorbed block, 4 operations each."""
+    division (``longdiv_ops``), MUL 64 multiply-adds, EXP what its
+    operands need (``exp_ops``), SHA3 ~200 64-bit operations per round
+    per absorbed block, 4 operations each."""
     import torch
     from mythril_tpu_torch.core import interpreter as ci
     from mythril_tpu_torch.ops import u256
@@ -1786,7 +2073,7 @@ def step_ops(f, op, run) -> int:
         elif c == ci.CLS_MODARITH:
             ops += longdiv_ops(a + b if o == 0x08 else a * b, m)
         elif c == ci.CLS_EXP:
-            ops += square_multiply_steps(b) * 36 * 4
+            ops += exp_ops(a, b)
         elif b <= 200:  # SHA3 past the cap hashes nothing
             ops += (b // 136 + 1) * 24 * 200 * 2
     return ops
@@ -1810,7 +2097,7 @@ K10_THREADS = (32, 64, 128, 256)
 K10_SPLIT = ("evm_prologue", "evm_dispatch", "evm_epilogue")
 
 
-def check_k10(dev, rng):
+def check_k10(dev, rng, parent_lib=None):
     """K10 against its plain versions on the card, every frontier field
     with max_abs_err 0, each entry point through a descriptor in place on
     fields owned once (as ``run`` and ``sym_run`` launch it), over
@@ -1831,7 +2118,9 @@ def check_k10(dev, rng):
     written fields and a full marshal every launch, the launch path before
     the descriptor).
     Then the block-size sweep and the stress dispatch's device time per
-    opcode class."""
+    opcode class. With ``--parent-k6 SRC`` the parent tree's K10 on the
+    same inputs in turns: the fused entry point over the ERC-20 run and
+    the stress dispatch by class, on the device."""
     import torch
     from mythril_tpu_torch import kernels
     from mythril_tpu_torch.config import DEFAULT_LIMITS
@@ -1939,13 +2228,16 @@ def check_k10(dev, rng):
     n_steps = pin["n_steps"]
     _, f0, env0, corpus0 = erc20_transfer_workload(P_K10, L, device=dev)
 
-    def fused_run(mode):
+    stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def fused_run(mode, lib=None):
         """-> (frontier, ms per superstep): ``bare`` binds once and
         launches; ``wrapper`` calls evm_superstep with the descriptor;
         ``marshal`` with a new descriptor each launch (a full
-        marshal); ``copies`` standalone (a copy and a marshal a launch)."""
+        marshal); ``copies`` standalone (a copy and a marshal a launch).
+        ``lib``: another build of K10 (the parent tree's), ``bare`` only."""
         g = kernels.own_evm_fields(f0)
-        k = EvmStep.on_card(dev)
+        k = EvmStep.on_card(dev) if lib is None else EvmStep(lib, stream, dev)
         k.bind("superstep", g, env0, corpus0)
         launch = {"bare": lambda: k.launch("superstep"),
                   "wrapper": lambda: kernels.evm_superstep(g, env0, corpus0, k10=k),
@@ -1992,6 +2284,14 @@ def check_k10(dev, rng):
           f"{mean['marshal']:.4f}; standalone with copies {mean['copies']:.4f}; "
           f"device {dev_ms:.4f} (torch.profiler); plain {plain_total / n_steps:.3f}",
           flush=True)
+    if parent_lib is not None:
+        if any(e != 0 for e in frontier_errs(fused_run("bare", parent_lib)[0], g).values()):
+            fail("K10: the parent's K10 disagrees on the ERC-20 run")
+        run_ms = [kernel_device_ms(lambda: fused_run("bare", lib), "evm_superstep_kernel")
+                  for lib in (parent_lib, None, None, parent_lib)]
+        print(f"[3] evm_superstep ERC-20 run on the device, the parent's K10 and this one in "
+              f"turns (parent, this, this, parent): {' / '.join(f'{t:.4f}' for t in run_ms)} ms "
+              f"a launch", flush=True)
     out = [dict(name="evm_superstep", max_abs_err=err["evm_superstep"], ms=mean["wrapper"],
                 plain_ms=plain_total / n_steps, nbytes=nbytes / n_steps, ops=nops / n_steps)]
 
@@ -2104,20 +2404,35 @@ def check_k10(dev, rng):
           flush=True)
 
     # the stress dispatch's device time by opcode class (each class's lanes
-    # alone, the others under skip), on copies each launch
+    # alone, the others under skip), on copies each launch; with a parent
+    # tree, its K10 and this one in turns (parent, this, this, parent)
     fp, op, run, old_pc = ci.prologue_plain(f, corpus)
     cls = ci.Tables.on(dev).CLASS[op.long()]
-    per = {"all": (int(run.sum()), kernel_device_ms(
-        lambda: kernels.evm_dispatch(fp, env, corpus, op, run, old_pc), "evm_dispatch_kernel",
-        5))}
-    for c in range(ci.N_CLASSES):
-        lanes = run & (cls == c)
+    k_this = EvmStep.on_card(dev)
+    k_old = None if parent_lib is None else EvmStep(parent_lib, stream, dev)
+
+    def dispatch(k, skip):
+        return lambda: kernels.evm_step_call("dispatch", k, kernels.own_evm_fields(fp, "dispatch"),
+                                             env, corpus, op=op, run=run, old_pc=old_pc,
+                                             skip=skip)[0]
+
+    if k_old is not None and any(e != 0 for e in frontier_errs(dispatch(k_old, None)(),
+                                                               dispatch(k_this, None)()).values()):
+        fail("K10: the parent's K10 disagrees on the stress dispatch")
+    order = (k_this,) if k_old is None else (k_old, k_this, k_this, k_old)
+    classes = [("all", run)] + [(CLASS_NAMES[c], run & (cls == c)) for c in range(ci.N_CLASSES)]
+    per = {}
+    for name, lanes in classes:
         if bool(lanes.any()):
-            per[CLASS_NAMES[c]] = (int(lanes.sum()), kernel_device_ms(
-                lambda: kernels.evm_dispatch(fp, env, corpus, op, run, old_pc, ~lanes),
-                "evm_dispatch_kernel", 5))
-    print(f"[3] stress dispatch at P={P_K10} by class (running lanes, device ms a launch): "
-          + "; ".join(f"{n} {c} {ms:.4f}" for n, (c, ms) in per.items()), flush=True)
+            skip = None if name == "all" else ~lanes
+            per[name] = (int(lanes.sum()), [kernel_device_ms(dispatch(k, skip),
+                                                             "evm_dispatch_kernel", 5)
+                                            for k in order])
+    print(f"[3] stress dispatch at P={P_K10} by class (running lanes, device ms a launch"
+          + (")" if k_old is None else "; the parent's K10 and this one in turns: parent, this, "
+             "this, parent)") + ": " + "; ".join(
+              f"{n} {c} {' / '.join(f'{x:.4f}' for x in ms)}" for n, (c, ms) in per.items()),
+          flush=True)
 
     for o in out:
         o.update(source=K10_SOURCE, replaces=K10_REPLACES[o["name"]])
@@ -2232,17 +2547,15 @@ def main() -> int:
         return 0
 
     # phase 3: kernels against their plain versions
-    parents, logs = ptxas_builds(argv_value("--parent-k6"))
-    for name, lines in logs.items():
-        for ln in lines:
-            print(f"[3] ptxas {name}: {ln}", flush=True)
+    parents = ptxas_builds(argv_value("--parent-k6"))
     rng = np.random.default_rng(20261017)
-    results = [check_k1(dev, rng), check_k2(dev, rng), check_k3(dev, rng),
-               check_k3_group(dev, np.random.default_rng(20261018)), check_k4(dev, rng),
-               check_k5(dev, rng, parents.get("parent u256_modexp")),
+    results = [check_k1(dev, rng, parents.get("parent u256_divmod")), check_k2(dev, rng),
+               check_k3(dev, rng), check_k3_group(dev, np.random.default_rng(20261018)),
+               check_k4(dev, rng), check_k5(dev, rng, parents.get("parent u256_modexp")),
                check_k6(dev, rng, parents.get("parent propagate_sweep")),
-               check_k7(dev, rng), check_k8(dev, rng), *check_k9(dev, rng),
-               *check_k10(dev, rng)]
+               check_k7(dev, rng), check_k8(dev, rng),
+               *check_k9(dev, rng, parents.get("parent u256_mulmod_exp")),
+               *check_k10(dev, rng, parents.get("parent evm_step"))]
     for r in results:
         if r["max_abs_err"] != 0:
             fail(f"{r['name']}: kernel disagrees with its plain version "
@@ -2536,8 +2849,9 @@ def run_paths(dev, card) -> dict:
     got = {(i.swc_id, i.address) for i in report.issues if i.contract.startswith("erc20")}
     if got != want20:
         fail(f"batch: erc20 issues {got} != {want20}")
-    # the same batch again under the held-input check (not timed)
-    with held_inputs("batch"):
+    # the same batch again under the held-input check (not timed), its EXP
+    # lanes counted by exp8's path
+    with held_inputs("batch"), exp_paths("the phase-7 batch (erc20full, erc721)"):
         sym_h = SymExecWrapper(codes, contract_names=names, limits=DEFAULT_LIMITS,
                                lanes_per_contract=64, max_steps=512, transaction_count=2,
                                device=dev)
@@ -2632,7 +2946,7 @@ def run_campaign(dev, card) -> dict:
               f"launches {counts}; card {card}", flush=True)
         k3_launches(f"[11] campaign {what}", counts)
 
-    with held_inputs("campaign unpipelined"):
+    with held_inputs("campaign unpipelined"), exp_paths("the unpipelined campaign"):
         one("unpipelined", ["--no-pipeline", "--init-timeout", "300"], "plain")
     one("pipelined", [], "plain")
 
@@ -2771,7 +3085,11 @@ def run_policies(dev) -> dict:
         iprof = ["--enable-iprof"] if strategy == "bfs" else []
         depth = [] if strategy == "bfs" else list(ARITH_SHORT_ARGS)
         pin = f"arith_{strategy}.json" if strategy == "bfs" else f"arith_{strategy}_short.json"
-        with timed_stages(f"arith --strategy {strategy}" if strategy == "bfs" else None):
+        # the EXP lanes counted by exp8's path, but not in bfs's run, whose
+        # loop stages phase 8 times
+        count = contextlib.nullcontext() if strategy == "bfs" else exp_paths(
+            f"arith --strategy {strategy} {' '.join(depth)}")
+        with timed_stages(f"arith --strategy {strategy}" if strategy == "bfs" else None), count:
             (err, stats), counts = counted(lambda: run_cli(
                 f"arith --strategy {strategy} {' '.join(iprof + depth)}",
                 ["-f", arith, "--strategy", strategy, *iprof, *depth], pin=pin, phase="9"))
@@ -2804,9 +3122,10 @@ def run_policies(dev) -> dict:
     # rotated copy (the second-to-last seam) resumes mid-transaction
     ck = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
     ck_kw = dict(kw, transaction_count=1, deadline_chunk_steps=16)
-    _, counts = counted(lambda: SymExecWrapper([arith_code()], contract_names=["MAIN"],
-                                               limits=DEFAULT_LIMITS, checkpoint_dir=ck,
-                                               **ck_kw))
+    with exp_paths("arith bfs, 512 steps, 1 tx (the checkpointed run)"):
+        _, counts = counted(lambda: SymExecWrapper([arith_code()], contract_names=["MAIN"],
+                                                   limits=DEFAULT_LIMITS, checkpoint_dir=ck,
+                                                   **ck_kw))
     add(counts)
     mid = os.path.join(ck, "frontier.npz.1")
     if not os.path.exists(mid):

@@ -20,8 +20,9 @@ K10    ``csrc/evm_step.cu``        ``evm_prologue``, ``evm_dispatch``,
                                    concrete EVM step per lane
 =====  ==========================  =========================================
 
-``csrc/u256.cuh`` holds the limb helpers, the long division and the
-Barrett reduction that K1, K5, K6, K8, K9 and K10 share; ``csrc/keccak.cuh``
+``csrc/u256.cuh`` holds the limb helpers that K1, K6, K8, K9 and K10
+share, and K1's, K9's and K10's division core (Knuth's algorithm D over
+32-bit limbs) and EXP chain; ``csrc/keccak.cuh``
 the permutation K2 and K10 share; ``csrc/evm_step.cuh`` K10's per-lane
 body, ``csrc/tape_append.cuh`` K3's and ``csrc/propagate.cuh`` K6's
 per-warp bodies, ``csrc/modexp.cuh`` K5's quarter-warp body and
@@ -218,6 +219,21 @@ def bind_propagate_sweep(lib):
     lib.propagate_sweep.restype = ctypes.c_int
 
 
+def bind_divmod(lib):
+    """Argument and result types of K1's entry point on a loaded library
+    (the nvcc build here; a parent tree's in ``chip_smoke.py``; the CPU
+    tests' host build of the same body)."""
+    lib.divmod_u256.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_void_p]
+    lib.divmod_u256.restype = ctypes.c_int
+
+
+def bind_mulmod_exp(lib):
+    """Argument and result types of K9's entry points on a loaded library."""
+    for fn in (lib.u256_mod_wide, lib.u256_exp):
+        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+
+
 def build(verbose: bool = False) -> float:
     """Make sure the libraries match the sources (:func:`ensure_built`:
     compiled by this process or reused from an earlier one, as
@@ -231,7 +247,7 @@ def build(verbose: bool = False) -> float:
         mode = ensure_built(_nvcc(), verbose)
         libs = {name: ctypes.CDLL(_lib_path(name)) for name in SOURCES}
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        libs["u256_divmod"].divmod_u256.argtypes = [vp, vp, vp, vp, ci, vp]
+        bind_divmod(libs["u256_divmod"])
         libs["keccak256"].keccak256.argtypes = [vp, vp, vp, ci, ci, vp]
         bind_tape_append(libs["tape_append"])
         libs["sha256"].sha256.argtypes = [vp, vp, vp, ci, ci, vp]
@@ -239,13 +255,10 @@ def build(verbose: bool = False) -> float:
         bind_propagate_sweep(libs["propagate_sweep"])
         bind_fork_expand(libs["fork_plan"])
         libs["u256_mul"].u256_mul.argtypes = [vp, vp, vp, ci, ci, vp]
-        libs["u256_mulmod_exp"].u256_mod_wide.argtypes = [vp, vp, vp, ci, vp]
-        libs["u256_mulmod_exp"].u256_exp.argtypes = [vp, vp, vp, ci, vp]
+        bind_mulmod_exp(libs["u256_mulmod_exp"])
         bind_evm_step(libs["evm_step"])
-        for lib, fn in (("u256_divmod", "divmod_u256"), ("keccak256", "keccak256"),
-                        ("sha256", "sha256"),
-                        ("u256_mul", "u256_mul"), ("u256_mulmod_exp", "u256_mod_wide"),
-                        ("u256_mulmod_exp", "u256_exp")):
+        for lib, fn in (("keccak256", "keccak256"), ("sha256", "sha256"),
+                        ("u256_mul", "u256_mul")):
             getattr(libs[lib], fn).restype = ci
         _LIBS.update(libs)
         BUILD_SECONDS = time.monotonic() - t0

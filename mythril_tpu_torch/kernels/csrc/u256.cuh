@@ -1,11 +1,14 @@
-// Shared 256-bit limb helpers for the u256 kernels (K1, K5, K6, K8, K9)
-// and the concrete EVM step (K10).
+// Shared 256-bit limb helpers for the u256 kernels (K1, K6, K8, K9) and
+// the concrete EVM step (K10), and the bodies K1, K9 and K10 share: the
+// division core `divrem` (Knuth's algorithm D over 32-bit limbs, behind
+// DIV/MOD and ADDMOD/MULMOD) and the EXP chain `exp8`.
 //
 // A word is 8 uint32_t limbs, little-endian; the port's tensors carry each
 // limb in an int64 (0..2^32-1), so loads truncate and stores widen. Every
-// helper works on small per-thread arrays; loops have compile-time trip
-// counts where the limb count is fixed, so the compiler keeps the limbs in
-// registers.
+// helper works on small per-thread arrays. The division core and the EXP
+// chain index their arrays with compile-time constants only (unrolled
+// loops, select networks for runtime shifts and limb picks), so the limbs
+// stay in registers: K1 and K9 have no stack frame and no spill.
 
 #pragma once
 
@@ -54,7 +57,14 @@ __device__ inline bool gte_n(const uint32_t* a, const uint32_t* b, int n) {
   return true;
 }
 
-__device__ inline bool lt8(const uint32_t* a, const uint32_t* b) { return !gte_n(a, b, 8); }
+// a < b over 8 limbs: the borrow out of a - b, unrolled and branch-free so
+// that neither word leaves registers
+__device__ inline bool lt8(const uint32_t* a, const uint32_t* b) {
+  uint32_t borrow = 0u;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) borrow = (uint32_t)(((uint64_t)a[i] - b[i] - borrow) >> 63);
+  return borrow != 0u;
+}
 
 // out = a + b mod 2^(32n); returns the carry out
 __device__ inline bool add_n(const uint32_t* a, const uint32_t* b, uint32_t* out, int n) {
@@ -139,58 +149,189 @@ __device__ inline void mul_low(const uint32_t* a, int na, const uint32_t* b, int
   }
 }
 
-// index of the highest set bit of an 8-limb word, -1 for 0
+// index of the highest set bit of an 8-limb word, -1 for 0 (a select a
+// limb, no early exit: a loop that returns early indexes the word at run
+// time and puts it in local memory)
 __device__ inline int top_bit8(const uint32_t* a) {
-  for (int i = 7; i >= 0; --i) {
-    if (a[i]) return 32 * i + 31 - __clz(a[i]);
-  }
-  return -1;
+  int t = -1;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) t = a[i] ? 32 * i + 31 - __clz(a[i]) : t;
+  return t;
 }
 
-// Barrett reduction by a nonzero 256-bit modulus m: the modulus is
-// normalized (m_n = m << s, top bit 255) and mu = floor(2^512 / m_n) is
-// found once by shift-subtract (258 steps). A 512-bit x < m * 2^256 is
-// reduced as  q3 = ((x << s) >> 255) * mu >> 257,  r = (x << s) - q3 m_n
-// (in [0, 3 m_n)), at most two subtractions of m_n, then r >> s.
-struct Barrett {
-  uint32_t mn[9];  // normalized modulus, limb 8 = 0
-  uint32_t mu[9];  // floor(2^512 / m_n), up to 2^257
-  int s;
-};
+// index of the lowest set bit of an 8-limb word, -1 for 0, as top_bit8
+__device__ inline int low_bit8(const uint32_t* a) {
+  int t = -1;
+#pragma unroll
+  for (int i = 7; i >= 0; --i) t = a[i] ? 32 * i + 31 - __clz(a[i] & (0u - a[i])) : t;
+  return t;
+}
 
-__device__ inline void barrett_init(Barrett& B, const uint32_t* m, int top) {
-  B.s = 255 - top;
-  shl_bits(m, 8, B.s, B.mn, 8);
-  B.mn[8] = 0u;
-  // mu: quotient bits 257..0 of 2^512 / m_n; the remainder starts at 2^254
-  uint32_t rem[9] = {0, 0, 0, 0, 0, 0, 0, 0, 0};
-  rem[7] = 1u << 30;
-  for (int i = 0; i < 9; ++i) B.mu[i] = 0u;
-  for (int i = 257; i >= 0; --i) {
-    for (int k = 8; k > 0; --k) rem[k] = (rem[k] << 1) | (rem[k - 1] >> 31);
-    rem[0] <<= 1;
-    if (gte_n(rem, B.mn, 9)) {
-      sub_n(rem, B.mn, 9);
-      B.mu[i >> 5] |= 1u << (i & 31);
+// x (N limbs) << s in place for s in [0, 256): a funnel shift by s % 32,
+// then the limbs moved by s / 32 through three select stages (1, 2, 4
+// limbs). Every index is a compile-time constant, so the limbs stay in
+// registers; bits shifted past limb N - 1 are dropped.
+template <int N>
+__device__ inline void shl_norm(uint32_t* x, int s) {
+  int r = s & 31, ls = s >> 5;
+#pragma unroll
+  for (int i = N - 1; i > 0; --i)
+    x[i] = (uint32_t)(((((uint64_t)x[i] << 32) | x[i - 1]) << r) >> 32);
+  x[0] <<= r;
+#pragma unroll
+  for (int k = 1; k < 8; k <<= 1) {
+    bool on = (ls & k) != 0;
+#pragma unroll
+    for (int i = N - 1; i >= 0; --i) x[i] = on ? (i >= k ? x[i - k] : 0u) : x[i];
+  }
+}
+
+// x (N limbs) >> s in place for s in [0, 256), as shl_norm
+template <int N>
+__device__ inline void shr_norm(uint32_t* x, int s) {
+  int r = s & 31, ls = s >> 5;
+#pragma unroll
+  for (int k = 1; k < 8; k <<= 1) {
+    bool on = (ls & k) != 0;
+#pragma unroll
+    for (int i = 0; i < N; ++i) x[i] = on ? (i + k < N ? x[i + k] : 0u) : x[i];
+  }
+#pragma unroll
+  for (int i = 0; i < N - 1; ++i)
+    x[i] = (uint32_t)((((uint64_t)x[i + 1] << 32) | x[i]) >> r);
+  x[N - 1] >>= r;
+}
+
+// Möller and Granlund's reciprocal of a normalized limb d (top bit set):
+// floor((2^64 - 1) / d) - 2^32. The quotient lies in [2^32, 2^33), so the
+// cast drops the 2^32. One 64-bit division a call.
+__device__ inline uint32_t recip32(uint32_t d) { return (uint32_t)(~0ull / d); }
+
+// (u1 2^32 + u0) / d for a normalized d > u1, with v = recip32(d): the
+// quotient, the remainder in rem (Möller and Granlund, "Improved division
+// by invariant integers", 2011, algorithm 4). A multiply and at most two
+// corrections, no hardware divide.
+__device__ inline uint32_t div2by1(uint32_t u1, uint32_t u0, uint32_t d, uint32_t v,
+                                   uint32_t& rem) {
+  uint64_t p = (uint64_t)v * u1 + (((uint64_t)u1 << 32) | u0);
+  uint32_t q1 = (uint32_t)(p >> 32) + 1u, q0 = (uint32_t)p;
+  uint32_t r = u0 - q1 * d;
+  if (r > q0) {
+    --q1;
+    r += d;
+  }
+  if (r >= d) {
+    ++q1;
+    r -= d;
+  }
+  rem = r;
+  return q1;
+}
+
+// (x / d, x % d) for an NX-limb x and a 256-bit d, d == 0 giving (0, 0);
+// the quotient's NX limbs are written only when Q. Knuth's algorithm D
+// over 32-bit limbs (TAOCP vol. 2, 4.3.1), the divisor always 8 limbs:
+//   - quick exits: d == 0; x < d; a one-limb d (NX 2-by-1 steps);
+//   - d is shifted left until its top bit is bit 255, and x by the same
+//     s bits into NX + 9 limbs, so the quotient has NX + 1 digits and
+//     every limb index below is a compile-time constant (the digit loop
+//     is unrolled); the leading digits whose window lies above x's top
+//     limb are skipped;
+//   - a digit is estimated from the window's top two limbs by div2by1
+//     against the divisor's top limb (the cap 2^32 - 1 when they are
+//     equal), lowered at most twice by Knuth's test against the second
+//     limb, then its 8-limb multiply-subtract row runs with 64-bit
+//     accumulation; a borrow out of the window adds the divisor back once;
+//   - the remainder is the low 8 limbs shifted back by s.
+template <int NX, bool Q>
+__device__ inline void divrem(const uint32_t* x, const uint32_t* d, uint32_t* q,
+                              uint32_t* r) {
+  fill8(r, 0u);
+  if (Q) {
+#pragma unroll
+    for (int i = 0; i < NX; ++i) q[i] = 0u;
+  }
+  int top = top_bit8(d);
+  if (top < 0) return;
+  uint32_t xhi = 0u;
+#pragma unroll
+  for (int i = 8; i < NX; ++i) xhi |= x[i];
+  if (xhi == 0u && lt8(x, d)) {
+    copy8(r, x);
+    return;
+  }
+  if (top < 32) {
+    int c = __clz(d[0]);
+    uint32_t dn = d[0] << c, v = recip32(dn);
+    uint32_t rem = (uint32_t)(((uint64_t)x[NX - 1] << c) >> 32);
+#pragma unroll
+    for (int i = NX - 1; i >= 0; --i) {
+      uint32_t lo = i > 0 ? x[i - 1] : 0u;
+      uint32_t ui = (uint32_t)(((((uint64_t)x[i] << 32) | lo) << c) >> 32);
+      uint32_t qi = div2by1(rem, ui, dn, v, rem);
+      if (Q) q[i] = qi;
     }
+    r[0] = rem >> c;
+    return;
   }
-}
-
-// r = x mod m for a 16-limb x < m * 2^256
-__device__ inline void barrett_reduce(const Barrett& B, const uint32_t* x, uint32_t* r) {
-  uint32_t xn[16], q1[9], q2[18], q3[9], qm[9];
-  shl_bits(x, 16, B.s, xn, 16);
-  shr_bits(xn, 16, 255, q1, 9);
-  mul_low(q1, 9, B.mu, 9, q2, 18);
-  shr_bits(q2, 18, 257, q3, 9);
-  mul_low(q3, 9, B.mn, 9, qm, 9);
-  uint32_t rr[9];
-  for (int i = 0; i < 9; ++i) rr[i] = xn[i];
-  sub_n(rr, qm, 9);  // exact: the true remainder estimate is < 3 m_n < 2^288
-  for (int k = 0; k < 2; ++k) {
-    if (gte_n(rr, B.mn, 9)) sub_n(rr, B.mn, 9);
+  int s = 255 - top;
+  uint32_t v[8], u[NX + 9];
+  copy8(v, d);
+  shl_norm<8>(v, s);
+#pragma unroll
+  for (int i = 0; i < NX + 9; ++i) u[i] = i < NX ? x[i] : 0u;
+  shl_norm<NX + 9>(u, s);
+  int L = 0;  // limbs of the normalized dividend
+#pragma unroll
+  for (int i = 0; i < NX + 9; ++i) L = u[i] ? i + 1 : L;
+  uint32_t v7 = v[7], v6 = v[6], rv = recip32(v7);
+#pragma unroll
+  for (int j = NX; j >= 0; --j) {
+    if (j + 7 >= L) continue;  // window below 2^224: a zero digit
+    uint32_t qh;
+    uint64_t rh;
+    if (u[j + 8] >= v7) {  // the cap
+      qh = 0xFFFFFFFFu;
+      rh = (uint64_t)u[j + 7] + v7;
+    } else {
+      uint32_t rr;
+      qh = div2by1(u[j + 8], u[j + 7], v7, rv, rr);
+      rh = rr;
+    }
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {  // Knuth's test against the second limb
+      if ((rh >> 32) == 0u && (uint64_t)qh * v6 > ((rh << 32) | u[j + 6])) {
+        --qh;
+        rh += v7;
+      }
+    }
+    uint64_t carry = 0u;
+    uint32_t borrow = 0u;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      uint64_t p = (uint64_t)qh * v[i] + carry;
+      carry = p >> 32;
+      uint64_t t = (uint64_t)u[j + i] - (uint32_t)p - borrow;
+      u[j + i] = (uint32_t)t;
+      borrow = (uint32_t)(t >> 63);
+    }
+    uint64_t t = (uint64_t)u[j + 8] - carry - borrow;
+    u[j + 8] = (uint32_t)t;
+    if (t >> 63) {  // qh was one too large: add the divisor back
+      --qh;
+      uint64_t c = 0u;
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        c += (uint64_t)u[j + i] + v[i];
+        u[j + i] = (uint32_t)c;
+        c >>= 32;
+      }
+      u[j + 8] += (uint32_t)c;
+    }
+    if (Q && j < NX) q[j] = qh;
   }
-  shr_bits(rr, 9, B.s, r, 8);
+  shr_norm<8>(u, s);
+  copy8(r, u);
 }
 
 // ---------------------------------------------------------------------------
@@ -297,100 +438,131 @@ __device__ inline void sar_word(const uint32_t* s, const uint32_t* a, uint32_t* 
   }
 }
 
-// Unsigned (x / d, x % d), division by zero giving (0, 0): the 256-step
-// shift-subtract long division, with the limbs in registers throughout
-// (K1's loop; DIV/MOD/SDIV/SMOD of K10)
+// Unsigned (x / d, x % d), division by zero giving (0, 0): the division
+// core on an 8-limb dividend, at most 9 digits (K1; DIV/MOD/SDIV/SMOD of
+// K10)
 __device__ inline void divmod8(const uint32_t* x, const uint32_t* d, uint32_t* q, uint32_t* r) {
-  uint32_t dz = 0u;
+  divrem<8, true>(x, d, q, r);
+}
+
+// r = x mod m for a 512-bit x (16 limbs), m == 0 giving 0: the division
+// core on a 16-limb dividend, at most 17 digits, no quotient kept (K9's
+// mod_wide; ADDMOD/MULMOD of K10)
+__device__ inline void mod_wide16(const uint32_t* x, const uint32_t* m, uint32_t* r) {
+  divrem<16, false>(x, m, nullptr, r);
+}
+
+// low 8 limbs of a * b from its 36 partial products, summed by column:
+// each product's halves go into 64-bit column sums (a column takes at most
+// 16 halves, far from overflow), so the products are independent of each
+// other and only the final carry pass over the 8 columns is serial; out
+// may be a or b
+__device__ inline void mul_low8(const uint32_t* a, const uint32_t* b, uint32_t* out) {
+  uint64_t s[9] = {0, 0, 0, 0, 0, 0, 0, 0, 0};
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
-    q[i] = 0u;
-    r[i] = 0u;
-    dz |= d[i];
-  }
-#pragma unroll 1
-  for (int limb = 7; limb >= 0; --limb) {
-    // runtime limb index -> select with a small unrolled scan, keeping x in
-    // registers
-    uint32_t xl = 0u;
 #pragma unroll
-    for (int i = 0; i < 8; ++i) xl = (i == limb) ? x[i] : xl;
-    uint32_t ql = 0u;
-#pragma unroll 1
-    for (int shift = 31; shift >= 0; --shift) {
-      uint32_t bit = (xl >> shift) & 1u;
-      // r = r << 1 | bit, remembering the bit shifted out of 2^256
-      uint32_t overflow = r[7] >> 31;
-#pragma unroll
-      for (int i = 7; i > 0; --i) r[i] = (r[i] << 1) | (r[i - 1] >> 31);
-      r[0] = (r[0] << 1) | bit;
-      // ge = overflow || r >= d (compare from the most significant limb)
-      uint32_t gt = 0u, lt = 0u;
-#pragma unroll
-      for (int i = 7; i >= 0; --i) {
-        uint32_t undecided = 1u ^ (gt | lt);
-        gt |= undecided & (r[i] > d[i] ? 1u : 0u);
-        lt |= undecided & (r[i] < d[i] ? 1u : 0u);
-      }
-      uint32_t ge = overflow | (1u ^ lt);
-      uint32_t m = 0u - ge;  // all ones when subtracting
-      uint64_t borrow = 0u;
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        uint64_t t = (uint64_t)r[i] - (uint64_t)(d[i] & m) - borrow;
-        r[i] = (uint32_t)t;
-        borrow = (t >> 63) & 1u;
-      }
-      ql |= ge << shift;
+    for (int j = 0; i + j < 8; ++j) {
+      uint64_t p = (uint64_t)a[i] * b[j];
+      s[i + j] += (uint32_t)p;
+      s[i + j + 1] += p >> 32;
     }
-#pragma unroll
-    for (int i = 0; i < 8; ++i) q[i] = (i == limb) ? ql : q[i];
   }
-  uint32_t keep = dz ? 0xFFFFFFFFu : 0u;
+  uint64_t c = 0u;
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    q[i] &= keep;
-    r[i] &= keep;
+  for (int k = 0; k < 8; ++k) {
+    c += s[k];
+    out[k] = (uint32_t)c;
+    c >>= 32;
   }
 }
 
-// r = x mod m for a 512-bit x (16 limbs), m == 0 giving 0: Barrett in two
-// steps that each meet its bound x < m * 2^256 — first the high half, then
-// r_hi * 2^256 + x_lo with r_hi < m (K9's mod_wide; ADDMOD/MULMOD of K10)
-__device__ inline void mod_wide16(const uint32_t* x, const uint32_t* m, uint32_t* r) {
-  int top = top_bit8(m);
-  if (top < 0) {
-    fill8(r, 0u);
+// low 8 limbs of a * a in 20 products, by column as mul_low8: the 16
+// a_i a_j with i < j and i + j < 8, doubled, and the 4 squares a_i^2; out
+// may be a
+__device__ inline void sqr_low8(const uint32_t* a, uint32_t* out) {
+  uint64_t s[9] = {0, 0, 0, 0, 0, 0, 0, 0, 0};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+#pragma unroll
+    for (int j = i + 1; i + j < 8; ++j) {
+      uint64_t p = (uint64_t)a[i] * a[j];
+      s[i + j] += (uint32_t)p;
+      s[i + j + 1] += p >> 32;
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < 8; ++k) s[k] <<= 1;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    uint64_t p = (uint64_t)a[i] * a[i];
+    s[2 * i] += (uint32_t)p;
+    s[2 * i + 1] += p >> 32;
+  }
+  uint64_t c = 0u;
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    c += s[k];
+    out[k] = (uint32_t)c;
+    c >>= 32;
+  }
+}
+
+// base ** e mod 2^256, e == 0 giving 1 (0 ** 0 included) (K9's exp; EXP
+// of K10). Exact fast paths first, in the order of their cost: e == 0;
+// base 0 or 1; base = 2^k (1 << k e when k e < 256, else 0); an even
+// base 2^t b' with t e >= 256 (e >= 256 included), whose power 2^256
+// divides. Otherwise left-to-right exponentiation in fixed 2-bit windows
+// of e: base^2 and base^3 precomputed (two products), then a window two
+// squarings and, unless its digit is 0, one multiply by base^digit, which
+// a select picks from the three words; e's limb is picked by a select
+// scan, so e and the table stay in registers.
+__device__ inline void exp8(const uint32_t* base, const uint32_t* e, uint32_t* out) {
+  fill8(out, 0u);
+  int te = top_bit8(e);
+  if (te < 0) {
+    out[0] = 1u;
     return;
   }
-  Barrett B;
-  barrett_init(B, m, top);
-  uint32_t t[16];
-  for (int i = 0; i < 8; ++i) {
-    t[i] = x[8 + i];
-    t[8 + i] = 0u;
+  int tb = top_bit8(base);
+  if (tb <= 0) {
+    out[0] = tb == 0 ? 1u : 0u;
+    return;
   }
-  uint32_t rh[8];
-  barrett_reduce(B, t, rh);
-  for (int i = 0; i < 8; ++i) {
-    t[i] = x[i];
-    t[8 + i] = rh[i];
+  int lb = low_bit8(base);
+  bool small_e = te < 8;  // e < 256, e == e[0]
+  if (lb == tb) {  // base = 2^k
+    uint32_t ke = small_e ? (uint32_t)tb * e[0] : 256u;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) out[i] = (ke < 256u && (int)(ke >> 5) == i) ? 1u << (ke & 31) : 0u;
+    return;
   }
-  barrett_reduce(B, t, r);
-}
-
-// base ** e mod 2^256 by square-and-multiply of low products from the top
-// set bit of e; e == 0 gives 1 (K9's exp; EXP of K10)
-__device__ inline void exp8(const uint32_t* base, const uint32_t* e, uint32_t* out) {
-  uint32_t t[8];
-  fill8(out, 0u);
-  out[0] = 1u;
-  for (int i = top_bit8(e); i >= 0; --i) {
-    mul_low(out, 8, out, 8, t, 8);
-    copy8(out, t);
-    if ((e[i >> 5] >> (i & 31)) & 1u) {
-      mul_low(out, 8, base, 8, t, 8);
-      copy8(out, t);
+  if (lb > 0 && (!small_e || (uint32_t)lb * e[0] >= 256u)) return;
+  uint32_t b1[8], b2[8], b3[8];
+  copy8(b1, base);
+  sqr_low8(b1, b2);
+  mul_low8(b2, b1, b3);
+  int top = te | 1;  // the top window, bits top and top - 1, holds te
+  bool first = true;
+#pragma unroll 1
+  for (int l = top >> 5; l >= 0; --l) {
+    uint32_t w = 0u;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) w = i == l ? e[i] : w;
+#pragma unroll 1
+    for (int k = l == (top >> 5) ? (top & 31) : 31; k > 0; k -= 2) {
+      uint32_t d = (w >> (k - 1)) & 3u;
+      uint32_t m[8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) m[i] = d == 1u ? b1[i] : (d == 2u ? b2[i] : b3[i]);
+      if (first) {  // its digit is not 0
+        copy8(out, m);
+        first = false;
+        continue;
+      }
+      sqr_low8(out, out);
+      sqr_low8(out, out);
+      if (d) mul_low8(out, m, out);
     }
   }
 }

@@ -1,9 +1,13 @@
-"""K10's per-lane body (``kernels/csrc/evm_step.cuh``) built as host C++.
+"""K10's per-lane body (``kernels/csrc/evm_step.cuh``) built as host C++,
+with the K1 and K9 bodies it shares (``u256.cuh``).
 
 ``g++`` compiles the header with a small shim (``__device__`` and the
 like defined away) into a library whose entry points loop the lanes, as
 ``evm_step.cu``'s kernels run one thread per lane; the fused one zeroes
 and counts ``n_running`` as that kernel does with its memset and ballot.
+The library also exports K1's and K9's C interfaces (``divmod_u256``,
+``u256_mod_wide``, ``u256_exp``) as loops over the lanes of
+``u256.cuh``'s ``divmod8``, ``mod_wide16`` and ``exp8``.
 The CPU tests drive it through the wrappers' own marshaling
 (``kernels.EvmStep``, ``kernels.evm_step_call``) and hold it to the plain
 versions. ``route`` makes the interpreter and the engine take it for a
@@ -41,7 +45,42 @@ _SHIM_CPP = "#include \"evm_step.cuh\"\n" + "".join(
     for e in ("prologue", "dispatch", "epilogue")) + _ENTRY.format(
     e="superstep", body="  *f.n_running = 0;\n"
                         "  for (int p = 0; p < f.P; ++p)\n"
-                        "    if (evm::entry_superstep(f, p)) ++*f.n_running;\n")
+                        "    if (evm::entry_superstep(f, p)) ++*f.n_running;\n") + """
+// K1's and K9's bodies (u256.cuh) as loops over the lanes, with the C
+// interfaces of u256_divmod.cu and u256_mulmod_exp.cu
+extern "C" int divmod_u256(const int64_t* a, const int64_t* b, int64_t* q, int64_t* r,
+                           int n, void*) {
+  for (int p = 0; p < n; ++p) {
+    uint32_t x[8], d[8], qq[8], rr[8];
+    u256::load(a + 8 * p, x);
+    u256::load(b + 8 * p, d);
+    u256::divmod8(x, d, qq, rr);
+    u256::store(q + 8 * p, qq);
+    u256::store(r + 8 * p, rr);
+  }
+  return 0;
+}
+extern "C" int u256_mod_wide(const int64_t* x, const int64_t* m, int64_t* out, int n, void*) {
+  for (int p = 0; p < n; ++p) {
+    uint32_t xx[16], mm[8], rr[8];
+    u256::load(x + 16 * p, xx, 16);
+    u256::load(m + 8 * p, mm);
+    u256::mod_wide16(xx, mm, rr);
+    u256::store(out + 8 * p, rr);
+  }
+  return 0;
+}
+extern "C" int u256_exp(const int64_t* base, const int64_t* e, int64_t* out, int n, void*) {
+  for (int p = 0; p < n; ++p) {
+    uint32_t b[8], ee[8], acc[8];
+    u256::load(base + 8 * p, b);
+    u256::load(e + 8 * p, ee);
+    u256::exp8(b, ee, acc);
+    u256::store(out + 8 * p, acc);
+  }
+  return 0;
+}
+"""
 
 
 def chip_smoke():
