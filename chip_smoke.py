@@ -3,7 +3,7 @@
     python3 chip_smoke.py            # all phases (needs one CUDA device)
     python3 chip_smoke.py --kernels  # build + kernel checks only
     python3 chip_smoke.py --campaign # build + the campaign phase only
-    python3 chip_smoke.py --parent-k6 SRC ...  # also time another tree's K1, K5, K6, K9, K10
+    python3 chip_smoke.py --parent-k6 SRC ...  # also time another tree's K1, K2, K4-K6, K9, K10
 
 Phases, each fatal on failure:
 
@@ -17,13 +17,18 @@ Phases, each fatal on failure:
    (K1-K4 and K6-K9 at the main path's width, P = 2048 lanes; K5 at the
    main path's compacted shape, one lane, and on 64 lanes of edge and
    random operands), seeded random inputs plus edge cases; bit-for-bit
-   equality is required, and K1/K4/K5/K8/K9 also against hashlib /
-   Python's ints. K1 and K9 also on the rare branches of their division
-   core and EXP's fast paths (``DIVMOD_CASES``, ``MODWIDE_CASES``,
-   ``EXP_CASES``: the add-back, the digit cap, the second-limb
-   correction, one-limb divisors, k e = 255 and 256, ...). ptxas's
-   register and spill lines for K1, K3, K5, K6, K7, K9 and K10 (K1, K5
-   and K9 must have no stack frame and no spill, and K10 no spill). K3's
+   equality is required, and K1/K2/K4/K5/K8/K9 also against the host
+   keccak, hashlib or Python's ints. K1 and K9 also on the rare branches
+   of their division core and EXP's fast paths (``DIVMOD_CASES``,
+   ``MODWIDE_CASES``, ``EXP_CASES``: the add-back, the digit cap, the
+   second-limb correction, one-limb divisors, k e = 255 and 256, ...).
+   K2 also on CREATE2's 85-byte rows, in place and one byte off an
+   aligned start; K4 through its lane mask and off a 16-byte boundary,
+   and timed on the precompile path at ``K4_PATH_LANES`` lanes (the
+   masked launch against the compacted route before it). ptxas's
+   register and spill lines for K1-K7, K9 and K10 (K1, K2, K4, K5 and K9
+   must have no stack frame and no spill, K10 no spill and no frame
+   above ``K10_MAX_STACK`` bytes). K3's
    group entry point against R sequential plain appends on its edge
    cases (``group_cases``: the SHA3 chain
    masked off mid-chain, the binary op's CONST, CONST and node, rows
@@ -33,10 +38,11 @@ Phases, each fatal on failure:
    clipped ids) and on the frontier of a real batch just before a sweep;
    with ``--parent-k6 SRC`` also another tree's propagate_sweep.cu (say
    the parent commit's, unpacked in an ignored directory) and the
-   u256_modexp.cu, u256_divmod.cu, u256_mulmod_exp.cu and evm_step.cu
-   beside it, built here and timed on the same inputs in turns with this
-   tree's K6, K5, K1, K9 (mod_wide, exp) and K10 (the ERC-20 run and the
-   stress dispatch by opcode class). K7, the whole fork expansion in
+   u256_modexp.cu, u256_divmod.cu, u256_mulmod_exp.cu, keccak256.cu,
+   sha256.cu and evm_step.cu beside it, built here and timed on the same
+   inputs in turns with this tree's K6, K5, K1, K9 (mod_wide, exp), K2,
+   K4 (the whole batch and the precompile path) and K10 (the ERC-20 run
+   and the stress dispatch by opcode class). K7, the whole fork expansion in
    place through its descriptor, against the plain functional route
    (``expand_forks_plain``) over every leaf of a P = 2048 frontier (every
    field random rows, bounded-loops tables the copies hit), for each
@@ -49,8 +55,11 @@ Phases, each fatal on failure:
    steps: the vmtests batch stepped to quiescence, a seeded random-opcode
    stress batch of 4096 lanes (edge words of every class, every trap)
    under both gas schedules with the profiler on and a random ``skip``
-   mask, the fused entry point's count of running lanes, each entry point
-   once standalone (its input unchanged), and the ERC-20 transfer run.
+   mask, the fused entry point's count of running lanes, ``sha3_batch``'s
+   SHA3 windows (every offset mod 8, windows ending at the row's last
+   byte, offsets below the row; the digests also against the host
+   keccak), each entry point once standalone (its input unchanged), and
+   the ERC-20 transfer run.
    Times each kernel, its plain version and the bound the card's rates
    put on the same work; K3 and K6 also on the device alone (K3 through
    the loop's tape descriptor, as the engine calls it); K10 also through
@@ -422,6 +431,11 @@ def _edge_cases(M, S):
         (0x20, [0, 300], {}), (0x20, [sat, 1], {}), (0x20, [M - 10, 64], {}),
         (0x20, [0, 0], {}), (0x20, [5, 200], {}), (0x20, [big, 5], {}), (0x20, [3, big], {}),
         (0x20, [0, 136], {}), (0x20, [7, 135], {}), (0x20, [1 << 63, 1 << 63], {}),
+        # SHA3 at every offset mod 8 (K10 lines the row's words up) and
+        # windows that end at the row's last byte or start before the row
+        *[(0x20, [8 + sh, n], {}) for sh in range(8) for n in (33, 137)],
+        *[(0x20, [M - n, n], {}) for n in (1, 8, 13, 136, 137, 199, 200)],
+        (0x20, [sat, 9], {}), (0x20, [1 << 63, 5], {}),
         (0x37, [sat, 0, 5], {}), (0x37, [0, sat, 8], {}), (0x37, [10, 0, sat], {}),
         (0x37, [M - 3, 0, 8], {}), (0x37, [4, 2, 40], {}), (0x37, [1 << 63, 0, 1 << 63], {}),
         (0x37, [M - 8, 0, 8], {}), (0x39, [M - 1, 0, 1], {}), (0x3E, [M - 8, 0, 8], {}),
@@ -601,6 +615,56 @@ def evm_stress_batch(P, limits, rng, device="cpu"):
             f.st_keys[i, 0], f.st_used[i, 0], f.st_acct[i, 0] = word(1), True, f.cur_acct[i]
     f = Frontier.from_numpy(f, device)
     return f, make_env(P, device=device), corpus
+
+
+def sha3_windows(M):
+    """(offset, length) of the SHA3 lanes of ``sha3_batch``: every offset
+    mod 8 at lengths around the 8-byte word and the 136-byte block, the
+    same lengths ending at the row's last byte, and offsets that saturate
+    below the row (bytes there read as 0)."""
+    lens = (0, 1, 7, 8, 9, 31, 32, 33, 64, 135, 136, 137, 199, 200)
+    return ([(40 + sh, n) for sh in range(8) for n in lens]
+            + [(M - n, n) for n in lens if n]
+            + [((1 << 64) - 1, n) for n in (1, 5, 9, 200)] + [(1 << 63, 5)])
+
+
+def sha3_batch(limits, rng, device="cpu"):
+    """(frontier, env, corpus, windows): one lane per ``sha3_windows``
+    window, each about to run SHA3 (the corpus is SHA3, STOP) over a
+    random memory row."""
+    from mythril_tpu_torch.core import Corpus, make_env, make_frontier
+    from mythril_tpu_torch.core.frontier import Frontier
+    from mythril_tpu_torch.disassembler import ContractImage
+    from mythril_tpu_torch.ops import u256
+
+    M = limits.mem_bytes
+    windows = sha3_windows(M)
+    P = len(windows)
+    corpus = Corpus.from_images([ContractImage.from_bytecode(bytes([0x20, 0x00]),
+                                                             limits.max_code)], device)
+    f = make_frontier(P, limits, contract_id=np.zeros(P, np.int32), n_contracts=1).to_numpy()
+    f.memory = rng.integers(0, 256, (P, M)).astype(np.uint8)
+    f.mem_words = np.full(P, M // 32, np.int32)
+    for i, (off, n) in enumerate(windows):
+        f.stack[i, 0] = u256.from_int(n)
+        f.stack[i, 1] = u256.from_int(off)
+    f.sp = np.full(P, 2, np.int32)
+    return Frontier.from_numpy(f, device), make_env(P, device=device), corpus, windows
+
+
+def sha3_digests(memory, windows) -> list:
+    """The keccak-256 each ``sha3_batch`` lane must push: its window of the
+    lane's memory row (``memory`` a numpy array), bytes outside the row
+    read as 0, the offset an int64 as the step reads it."""
+    from mythril_tpu_torch.ops import keccak
+
+    M = memory.shape[1]
+    out = []
+    for row, (off, n) in zip(memory, windows):
+        off = off - (1 << 64) if off >> 63 else off
+        data = bytes(int(row[off + k]) if 0 <= off + k < M else 0 for k in range(n))
+        out.append(keccak.keccak256_host_int(data))
+    return out
 
 
 def frontier_errs(got, want) -> dict:
@@ -966,29 +1030,56 @@ def check_k1(dev, rng, parent_lib=None):
                 plain_ms=plain_ms, nbytes=nbytes, ops=ops)
 
 
-def check_k2(dev, rng):
+def check_k2(dev, rng, parent_lib=None):
+    """K2 at P = 2048, L = 200 (random lengths and the padding edges,
+    random bytes past each message) and on CREATE2's 85-byte rows (rows
+    that start mid-word, the buffer's last word straddling its end, and the
+    same rows in a buffer one byte past an aligned start), against its
+    plain version and the host keccak; with ``--parent-k6 SRC`` timed
+    against the parent tree's K2 in turns."""
     import torch
     from mythril_tpu_torch import kernels
-    from mythril_tpu_torch.ops import keccak
+    from mythril_tpu_torch.ops import keccak, u256
 
     L = 200
     data = rng.integers(0, 256, (P_MAIN, L), dtype=np.uint8)
     lens = rng.integers(0, L + 1, P_MAIN).astype(np.int32)
-    lens[:8] = [0, 1, 135, 136, 200, 64, 32, 137]
-    for i, n in enumerate(lens):
-        data[i, n:] = 0
+    edge = [0, 1, 31, 32, 135, 136, 137, 199, 200, 64]
+    lens[:len(edge)] = edge
     d = torch.as_tensor(data, device=dev)
     n = torch.as_tensor(lens, device=dev)
     out = kernels.keccak256(d, n)
-    plain = keccak.keccak256_plain(d, n)
-    err = max_abs_err(out, plain)
-    from mythril_tpu_torch.ops import u256
-
-    for i in range(8):
-        want = keccak.keccak256_host_int(bytes(data[i, :lens[i]]))
-        if u256.to_int(out[i].cpu().numpy()) != want:
-            fail(f"K2 lane {i} (len {lens[i]}) disagrees with the host keccak")
-    ms = time_ms(lambda: kernels.keccak256(d, n), 50)
+    err = max_abs_err(out, keccak.keccak256_plain(d, n))
+    # CREATE2's rows (0xff ++ deployer ++ salt ++ keccak(init)): 85 bytes
+    xr = np.random.default_rng(20261019)
+    c2 = xr.integers(0, 256, (P_MAIN, 85), dtype=np.uint8)
+    c2_lens = np.full(P_MAIN, 85, np.int32)
+    c2_lens[:6] = [0, 1, 7, 8, 9, 84]
+    d2, n2 = torch.as_tensor(c2, device=dev), torch.as_tensor(c2_lens, device=dev)
+    buf = torch.zeros(P_MAIN * 85 + 16, dtype=torch.uint8, device=dev)
+    shifted = buf[1:1 + P_MAIN * 85].view(P_MAIN, 85)
+    shifted.copy_(d2)
+    out2 = kernels.keccak256(d2, n2)
+    err = max(err, max_abs_err(out2, keccak.keccak256_plain(d2, n2)),
+              max_abs_err(kernels.keccak256(shifted, n2), out2))
+    got, got2 = out.cpu().numpy(), out2.cpu().numpy()
+    for i in range(64):
+        for rows, ln, g, what in ((data, lens, got, "L=200"), (c2, c2_lens, got2, "CREATE2")):
+            if u256.to_int(g[i]) != keccak.keccak256_host_int(bytes(rows[i, :ln[i]])):
+                fail(f"K2 {what} lane {i} (len {ln[i]}) disagrees with the host keccak")
+    this = lambda: kernels.keccak256(d, n)
+    ms = time_ms(this, 50)
+    print(f"[3] keccak256: L=200 and CREATE2's 85-byte rows (aligned and shifted) bit-exact; "
+          f"{ms:.4f} ms, device {kernel_device_ms(this, 'keccak256_kernel', 20):.4f} ms; "
+          f"CREATE2 rows device "
+          f"{kernel_device_ms(lambda: kernels.keccak256(d2, n2), 'keccak256_kernel', 20):.4f} ms",
+          flush=True)
+    if parent_lib is not None:
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        old = lambda: kernels.keccak256_call(parent_lib.keccak256, stream, d, n)
+        if not torch.equal(old(), out):
+            fail("K2: the parent's K2 disagrees")
+        turns("keccak256", "keccak256_kernel", this, old, 50)
     plain_ms = time_ms(lambda: keccak.keccak256_plain(d, n), 3)
     blocks = int(np.sum(lens // 136 + 1))
     nbytes = P_MAIN * L + P_MAIN * 4 + P_MAIN * 8 * 8
@@ -1264,21 +1355,70 @@ def check_k3_group(dev, rng):
                 plain_ms=plain_ms, nbytes=nbytes, ops=0)
 
 
-def check_k4(dev, rng):
+def k4_takes_mask(path) -> bool:
+    """Whether the K4 source at ``path`` has the lane mask in its C entry
+    point (the parent tree's K4 before it had one argument less)."""
+    import re
+
+    with open(path) as fh:
+        entry = re.search(r'extern "C" int sha256\(([^)]*)\)', fh.read())
+    return entry is not None and "mask" in entry.group(1)
+
+
+def parent_sha256(lib, dev):
+    """The parent tree's K4 as ``fn(data, length) -> int64[P, 8]``: its C
+    entry point with the lane mask (passed none) or, before it had one
+    (``lib.masked`` False: ``k4_takes_mask``), ``sha256(data, len, out,
+    P, N, stream)``."""
+    import ctypes
+
+    import torch
+    from mythril_tpu_torch import kernels
+
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if lib.masked:
+        return lambda data, length: kernels.sha256_call(lib.sha256, stream, data, length)
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.sha256.argtypes, lib.sha256.restype = [vp, vp, vp, ci, ci, vp], ci
+
+    def call(data, length):
+        out = torch.empty((data.shape[0], 8), dtype=torch.int64, device=dev)
+        if lib.sha256(data.data_ptr(), length.data_ptr(), out.data_ptr(), data.shape[0],
+                      data.shape[1], stream):
+            fail("the parent's K4 launch failed")
+        return out
+
+    return call
+
+
+# lanes K4 is timed at on the precompile path: the engine's few lanes
+K4_PATH_LANES = (1, 4)
+
+
+def check_k4(dev, rng, parent_lib=None):
+    """K4 at P = 2048 over the 448-byte precompile window (random lengths
+    and the padding edges, random bytes past each message) against its
+    plain version and hashlib; its lane mask (the engine's entry point)
+    against the plain version on the selected lanes; the same rows shifted
+    off a 16-byte boundary (the body's byte-wise reads). Times the whole
+    batch and the precompile path at ``K4_PATH_LANES`` lanes of it: the
+    masked launch the engine makes now beside the compacted route it made
+    before (index, gather, launch, zeros, scatter: ``engine._compacted``),
+    each with events and on the device. With ``--parent-k6 SRC`` the
+    parent tree's K4 in turns, on the whole batch and through the
+    compacted route."""
     import hashlib
 
+    import torch
     from mythril_tpu_torch import kernels
     from mythril_tpu_torch.ops import sha256, u256
+    from mythril_tpu_torch.symbolic import engine
 
     N = 448  # the precompile input window (PRE_IN_CAP)
     data = rng.integers(0, 256, (P_MAIN, N), dtype=np.uint8)
     lens = rng.integers(0, N + 1, P_MAIN).astype(np.int32)
-    edge = [0, 1, 55, 56, 63, 64, 119, 120, 448]
+    edge = [0, 1, 55, 56, 63, 64, 119, 120, 447, 448]
     lens[:len(edge)] = edge
-    for i, n in enumerate(lens):
-        data[i, n:] = 0
-    import torch
-
     d = torch.as_tensor(data, device=dev)
     n = torch.as_tensor(lens, device=dev)
     out = kernels.sha256(d, n)
@@ -1289,7 +1429,48 @@ def check_k4(dev, rng):
         want = int.from_bytes(hashlib.sha256(bytes(data[i, :lens[i]])).digest(), "big")
         if u256.to_int(got[i]) != want:
             fail(f"K4 lane {i} (len {lens[i]}) disagrees with hashlib")
-    ms = time_ms(lambda: kernels.sha256(d, n), 50)
+    xr = np.random.default_rng(20261020)
+    mask = torch.as_tensor(xr.random(P_MAIN) < 0.3, device=dev)
+    masked = torch.where(mask[:, None], plain, 0)
+    buf = torch.zeros(P_MAIN * N + 16, dtype=torch.uint8, device=dev)
+    shifted = buf[4:4 + P_MAIN * N].view(P_MAIN, N)
+    shifted.copy_(d)
+    err = max(err, max_abs_err(kernels.sha256(d, n, mask), masked),
+              max_abs_err(sha256.sha256_lanes(d, n, mask), masked),
+              max_abs_err(kernels.sha256(shifted, n), plain))
+    this = lambda: kernels.sha256(d, n)
+    ms = time_ms(this, 50)
+    print(f"[3] sha256: {P_MAIN} lanes, the lane mask and the shifted rows bit-exact; "
+          f"{ms:.4f} ms, device {kernel_device_ms(this, 'sha256_kernel', 20):.4f} ms", flush=True)
+    old_fn = None if parent_lib is None else parent_sha256(parent_lib, dev)
+    if old_fn is not None:
+        if not torch.equal(old_fn(d, n), out):
+            fail("K4: the parent's K4 disagrees")
+        turns("sha256", "sha256_kernel", this, lambda: old_fn(d, n), 50)
+    for k in K4_PATH_LANES:
+        lanes = np.sort(xr.choice(P_MAIN, k, replace=False))
+        sel = np.zeros(P_MAIN, bool)
+        sel[lanes] = True
+        m = torch.as_tensor(sel, device=dev)
+        want = torch.where(m[:, None], plain, 0)
+        routes = {"masked": lambda: sha256.sha256_lanes(d, n, m),
+                  "compacted": lambda: engine._compacted(sel, sha256.sha256_device, P_MAIN, dev,
+                                                         d, n)}
+        if old_fn is not None:
+            routes["compacted, the parent's K4"] = lambda: engine._compacted(
+                sel, old_fn, P_MAIN, dev, d, n)
+        for name, fn in routes.items():
+            if not torch.equal(fn(), want):
+                fail(f"K4 at {k} lane(s), {name}: disagrees with the plain version")
+        t = {name: (time_ms(fn, 50), kernel_device_ms(fn, "sha256_kernel", 20))
+             for name, fn in routes.items()}
+        print(f"[3] sha256 on the precompile path at {k} lane(s) of {P_MAIN} (lengths "
+              f"{lens[lanes].tolist()}): " + "; ".join(
+                  f"{name} {a:.4f} ms, device {b:.4f} ms" for name, (a, b) in t.items()),
+              flush=True)
+        if old_fn is not None:
+            turns(f"sha256 path at {k} lane(s) (this: masked; parent: compacted)",
+                  "sha256_kernel", routes["masked"], routes["compacted, the parent's K4"], 50)
     plain_ms = time_ms(lambda: sha256.sha256_plain(d, n), 2)
     blocks = int(np.sum((lens.astype(np.int64) + 9 + 63) // 64))
     # each lane's own message bytes and its length in, its digest out
@@ -1641,9 +1822,15 @@ def _sweep_args(sf):
 
 # the libraries whose ptxas lines phase 3 prints
 PTXAS_SOURCES = ("propagate_sweep", "tape_append", "u256_modexp", "fork_plan", "u256_divmod",
-                 "u256_mulmod_exp", "evm_step")
+                 "u256_mulmod_exp", "keccak256", "sha256", "evm_step")
 # a parent tree's libraries built beside this tree's under --parent-k6
-PARENT_SOURCES = ("propagate_sweep", "u256_modexp", "u256_divmod", "u256_mulmod_exp", "evm_step")
+PARENT_SOURCES = ("propagate_sweep", "u256_modexp", "u256_divmod", "u256_mulmod_exp",
+                  "keccak256", "sha256", "evm_step")
+# the kernels that must have no stack frame and no spill
+NO_STACK = (("K1", "u256_divmod"), ("K2", "keccak256"), ("K4", "sha256"), ("K5", "u256_modexp"),
+            ("K9", "u256_mulmod_exp"))
+# the most stack K10's entry points may have (bytes): the frame its handlers need
+K10_MAX_STACK = 240
 
 
 def ptxas_frames(lines) -> dict:
@@ -1663,14 +1850,15 @@ def ptxas_frames(lines) -> dict:
 
 
 def ptxas_builds(parent_src=None):
-    """This tree's K1, K3, K5, K6, K7, K9 and K10 sources and, with
-    ``--parent-k6 SRC``, the parent tree's K6 (SRC, in a copy of that
-    tree's ``csrc/``) and its K5, K1, K9 and K10 (``u256_modexp.cu``,
-    ``u256_divmod.cu``, ``u256_mulmod_exp.cu``, ``evm_step.cu`` beside it),
-    built with nvcc and ``-Xptxas=-v`` into a temporary directory, all at
-    once. ptxas must report no stack frame and no spill for K1, K5 and K9,
-    and no spill for any of K10's entry points. Prints ptxas's register
-    and spill lines. -> {parent build: its library}."""
+    """This tree's K1-K7, K9 and K10 sources and, with ``--parent-k6 SRC``,
+    the parent tree's K6 (SRC, in a copy of that tree's ``csrc/``) and its
+    K5, K1, K9, K2, K4 and K10 (``u256_modexp.cu``, ``u256_divmod.cu``,
+    ``u256_mulmod_exp.cu``, ``keccak256.cu``, ``sha256.cu``,
+    ``evm_step.cu`` beside it), built with nvcc and ``-Xptxas=-v`` into a
+    temporary directory, all at once. ptxas must report no stack frame and
+    no spill for K1, K2, K4, K5 and K9 (``NO_STACK``), and for K10's entry
+    points no spill and no frame above ``K10_MAX_STACK`` bytes. Prints
+    ptxas's register and spill lines. -> {parent build: its library}."""
     import ctypes
     import tempfile
 
@@ -1698,15 +1886,24 @@ def ptxas_builds(parent_src=None):
                       or "Used" in ln]
         for ln in logs[name]:
             print(f"[3] ptxas {name}: {ln}", flush=True)
-    for k, name in (("K1", "u256_divmod"), ("K5", "u256_modexp"), ("K9", "u256_mulmod_exp")):
+    for k, name in NO_STACK:
         frames = ptxas_frames(logs[name])
         if not frames or any(f != (0, 0, 0) for f in frames.values()):
             fail(f"{k}: ptxas reports a stack frame or spills: {frames}")
     k10 = ptxas_frames(logs["evm_step"])
     if not k10 or any(st or ld for _, st, ld in k10.values()):
         fail(f"K10: ptxas reports spills (stack frame, spill stores, spill loads): {k10}")
+    if any(frame > K10_MAX_STACK for frame, _, _ in k10.values()):
+        fail(f"K10: a stack frame above {K10_MAX_STACK} bytes: {k10}")
+
+    def bind_parent_sha256(lib):
+        lib.masked = k4_takes_mask(srcs["parent sha256"])
+        if lib.masked:
+            kernels.bind_sha256(lib)
+
     binders = {"propagate_sweep": kernels.bind_propagate_sweep, "u256_modexp": kernels.bind_modexp,
                "u256_divmod": kernels.bind_divmod, "u256_mulmod_exp": kernels.bind_mulmod_exp,
+               "keccak256": kernels.bind_keccak256, "sha256": bind_parent_sha256,
                "evm_step": kernels.bind_evm_step}
     libs = {}
     for name in srcs:
@@ -2125,6 +2322,7 @@ def check_k10(dev, rng, parent_lib=None):
     from mythril_tpu_torch import kernels
     from mythril_tpu_torch.config import DEFAULT_LIMITS
     from mythril_tpu_torch.core import interpreter as ci
+    from mythril_tpu_torch.ops import u256
     from mythril_tpu_torch.workloads import erc20_transfer_workload
 
     L = DEFAULT_LIMITS
@@ -2204,6 +2402,21 @@ def check_k10(dev, rng, parent_lib=None):
     print(f"[3] evm stress: {P_K10} lanes, {STRESS_STEPS} in-place steps x 2 schedules, split "
           f"and fused; classes in the first step {sorted(classes)}; trap codes after "
           f"{sorted(set(hs.err_code.cpu().tolist()))}", flush=True)
+
+    # SHA3 over windows at every offset mod 8, ending at the row's last
+    # byte and starting below the row: fused and split against the plain
+    # step, and the pushed digests against the host keccak
+    fw, envw, corpw, windows = sha3_batch(L, np.random.default_rng(20261021), dev)
+    want = fused_checked(EvmStep.on_card(dev), kernels.own_evm_fields(fw), fw, envw, corpw,
+                         "SHA3 windows")
+    split_checked(EvmStep.on_card(dev), kernels.own_evm_fields(fw), fw, envw, corpw, None,
+                  "SHA3 windows")
+    pushed = [u256.to_int(r) for r in want.stack[:, 0].cpu().numpy()]
+    if bool(want.error.any()) or pushed != sha3_digests(fw.memory.cpu().numpy(), windows):
+        fail("K10: a SHA3 window's digest differs from the host keccak")
+    print(f"[3] evm SHA3 windows: {len(windows)} lanes (every offset mod 8, windows ending at "
+          f"the row's last byte, offsets below the row), fused and split, equal the plain step "
+          f"and the host keccak", flush=True)
 
     # each entry point standalone, on copies: the input stays as it was
     fp, op, run, old_pc = ci.prologue_plain(f, corpus)
@@ -2549,9 +2762,11 @@ def main() -> int:
     # phase 3: kernels against their plain versions
     parents = ptxas_builds(argv_value("--parent-k6"))
     rng = np.random.default_rng(20261017)
-    results = [check_k1(dev, rng, parents.get("parent u256_divmod")), check_k2(dev, rng),
+    results = [check_k1(dev, rng, parents.get("parent u256_divmod")),
+               check_k2(dev, rng, parents.get("parent keccak256")),
                check_k3(dev, rng), check_k3_group(dev, np.random.default_rng(20261018)),
-               check_k4(dev, rng), check_k5(dev, rng, parents.get("parent u256_modexp")),
+               check_k4(dev, rng, parents.get("parent sha256")),
+               check_k5(dev, rng, parents.get("parent u256_modexp")),
                check_k6(dev, rng, parents.get("parent propagate_sweep")),
                check_k7(dev, rng), check_k8(dev, rng),
                *check_k9(dev, rng, parents.get("parent u256_mulmod_exp")),

@@ -6,7 +6,8 @@ K2     ``csrc/keccak256.cu``       ``keccak256`` — SHA3 of per-lane bytes
 K3     ``csrc/tape_append.cu``     ``tape_append``, ``tape_append_group`` —
                                    hash-consed tape append, one row or R
                                    rows a lane in one launch
-K4     ``csrc/sha256.cu``          ``sha256`` — SHA-256 (precompile 0x2)
+K4     ``csrc/sha256.cu``          ``sha256`` — SHA-256 (precompile 0x2),
+                                   every lane or the lanes of a mask
 K5     ``csrc/u256_modexp.cu``     ``modexp_u256`` — MODEXP (precompile 0x5),
                                    a quarter-warp per lane
 K6     ``csrc/propagate_sweep.cu`` ``propagate_sweep`` — feasibility sweep
@@ -23,7 +24,8 @@ K10    ``csrc/evm_step.cu``        ``evm_prologue``, ``evm_dispatch``,
 ``csrc/u256.cuh`` holds the limb helpers that K1, K6, K8, K9 and K10
 share, and K1's, K9's and K10's division core (Knuth's algorithm D over
 32-bit limbs) and EXP chain; ``csrc/keccak.cuh``
-the permutation K2 and K10 share; ``csrc/evm_step.cuh`` K10's per-lane
+the word-wise absorb and permutation K2 and K10 share (with K2's per-lane
+body); ``csrc/sha256.cuh`` K4's per-lane body; ``csrc/evm_step.cuh`` K10's per-lane
 body, ``csrc/tape_append.cuh`` K3's and ``csrc/propagate.cuh`` K6's
 per-warp bodies, ``csrc/modexp.cuh`` K5's quarter-warp body and
 ``csrc/fork_expand.cuh`` K7's per-lane bodies (the CPU tests build all of
@@ -227,6 +229,21 @@ def bind_divmod(lib):
     lib.divmod_u256.restype = ctypes.c_int
 
 
+def bind_keccak256(lib):
+    """Argument and result types of K2's entry point on a loaded library
+    (the nvcc build here; the CPU tests' host build of the same body)."""
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.keccak256.argtypes = [vp, vp, vp, ci, ci, vp]
+    lib.keccak256.restype = ci
+
+
+def bind_sha256(lib):
+    """Argument and result types of K4's entry point on a loaded library."""
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.sha256.argtypes = [vp, vp, vp, vp, ci, ci, vp]
+    lib.sha256.restype = ci
+
+
 def bind_mulmod_exp(lib):
     """Argument and result types of K9's entry points on a loaded library."""
     for fn in (lib.u256_mod_wide, lib.u256_exp):
@@ -248,18 +265,16 @@ def build(verbose: bool = False) -> float:
         libs = {name: ctypes.CDLL(_lib_path(name)) for name in SOURCES}
         vp, ci = ctypes.c_void_p, ctypes.c_int
         bind_divmod(libs["u256_divmod"])
-        libs["keccak256"].keccak256.argtypes = [vp, vp, vp, ci, ci, vp]
+        bind_keccak256(libs["keccak256"])
         bind_tape_append(libs["tape_append"])
-        libs["sha256"].sha256.argtypes = [vp, vp, vp, ci, ci, vp]
+        bind_sha256(libs["sha256"])
         bind_modexp(libs["u256_modexp"])
         bind_propagate_sweep(libs["propagate_sweep"])
         bind_fork_expand(libs["fork_plan"])
         libs["u256_mul"].u256_mul.argtypes = [vp, vp, vp, ci, ci, vp]
         bind_mulmod_exp(libs["u256_mulmod_exp"])
         bind_evm_step(libs["evm_step"])
-        for lib, fn in (("keccak256", "keccak256"), ("sha256", "sha256"),
-                        ("u256_mul", "u256_mul")):
-            getattr(libs[lib], fn).restype = ci
+        libs["u256_mul"].u256_mul.restype = ci
         _LIBS.update(libs)
         BUILD_SECONDS = time.monotonic() - t0
         BUILD_MODE = mode
@@ -339,19 +354,31 @@ def divmod_u256(a: torch.Tensor, b: torch.Tensor):
     return q, r
 
 
+def keccak256_call(fn, stream: int, data, length):
+    """One launch of K2's C entry point ``fn`` (the nvcc build's; the CPU
+    tests pass a host build's) on ``uint8[P, L]`` rows, each checked to lie
+    on ``data``'s device -> ``int64[P, 8]``. The rows may start at any
+    address and be of any length: the kernel reads whole aligned words of
+    the buffer and never past its ends."""
+    if data.dim() != 2:
+        raise ValueError("keccak256: data must be [P, max_len]")
+    P, L = data.shape
+    if length.device != data.device:
+        raise ValueError(f"keccak256 length: expected a tensor on {data.device}, "
+                         f"got {length.device}")
+    _check_layout(data, "keccak256 data", torch.uint8, (P, L))
+    _check_layout(length, "keccak256 length", torch.int32, (P,))
+    out = torch.empty((P, 8), dtype=torch.int64, device=data.device)
+    _raise_on(fn(data.data_ptr(), length.data_ptr(), out.data_ptr(), P, L, stream), "keccak256")
+    return out
+
+
 @_launch_counter
 def keccak256(data: torch.Tensor, length: torch.Tensor):
     """K2: data ``uint8[P, L]``, length ``int32[P]`` -> ``int64[P, 8]``."""
     dev = data.device
-    if data.dim() != 2:
-        raise ValueError("keccak256: data must be [P, max_len]")
-    P, L = data.shape
-    _check(data, "keccak256 data", torch.uint8, (P, L), dev)
-    _check(length, "keccak256 length", torch.int32, (P,), dev)
-    out = torch.empty((P, 8), dtype=torch.int64, device=dev)
-    err = _lib("keccak256").keccak256(data.data_ptr(), length.data_ptr(), out.data_ptr(),
-                                      P, L, _stream(dev))
-    _raise_on(err, "keccak256")
+    _check(data, "keccak256 data", torch.uint8, data.shape, dev)
+    out = keccak256_call(_lib("keccak256").keccak256, _stream(dev), data, length)
     keccak256.launches += 1
     return out
 
@@ -500,19 +527,34 @@ def tape_append_group(tape_op, tape_a, tape_b, tape_imm, tape_hash, tape_len,
     return k3.append_group(op, a, b, a_src, b_src, imm, mask)
 
 
-@_launch_counter
-def sha256(data: torch.Tensor, length: torch.Tensor):
-    """K4: data ``uint8[P, N]``, length ``int32[P]`` -> ``int64[P, 8]``."""
-    dev = data.device
+def sha256_call(fn, stream: int, data, length, mask=None):
+    """One launch of K4's C entry point ``fn`` (the nvcc build's; the CPU
+    tests pass a host build's) on ``uint8[P, N]`` rows, each tensor checked
+    to lie on ``data``'s device -> ``int64[P, 8]``: the digests of the
+    lanes ``mask`` (``bool[P]``, optional) selects, zeros elsewhere."""
     if data.dim() != 2:
         raise ValueError("sha256: data must be [P, N]")
     P, N = data.shape
-    _check(data, "sha256 data", torch.uint8, (P, N), dev)
-    _check(length, "sha256 length", torch.int32, (P,), dev)
-    out = torch.empty((P, 8), dtype=torch.int64, device=dev)
-    err = _lib("sha256").sha256(data.data_ptr(), length.data_ptr(), out.data_ptr(),
-                                P, N, _stream(dev))
-    _raise_on(err, "sha256")
+    for t, what in ((length, "length"), (mask, "mask")):
+        if t is not None and t.device != data.device:
+            raise ValueError(f"sha256 {what}: expected a tensor on {data.device}, got {t.device}")
+    _check_layout(data, "sha256 data", torch.uint8, (P, N))
+    _check_layout(length, "sha256 length", torch.int32, (P,))
+    if mask is not None:
+        _check_layout(mask, "sha256 mask", torch.bool, (P,))
+    out = torch.empty((P, 8), dtype=torch.int64, device=data.device)
+    _raise_on(fn(data.data_ptr(), length.data_ptr(), None if mask is None else mask.data_ptr(),
+                 out.data_ptr(), P, N, stream), "sha256")
+    return out
+
+
+@_launch_counter
+def sha256(data: torch.Tensor, length: torch.Tensor, mask: torch.Tensor = None):
+    """K4: data ``uint8[P, N]``, length ``int32[P]`` -> ``int64[P, 8]``;
+    with ``mask`` (``bool[P]``) only the selected lanes, zeros elsewhere."""
+    dev = data.device
+    _check(data, "sha256 data", torch.uint8, data.shape, dev)
+    out = sha256_call(_lib("sha256").sha256, _stream(dev), data, length, mask)
     sha256.launches += 1
     return out
 
@@ -1143,6 +1185,9 @@ class EvmStep:
         if t.dtype != dtype or t.shape != self._shapes[i] or not t.is_contiguous():
             _check_layout(t, f"evm_step {name}", dtype, self._shapes[i])
         p, n = t.data_ptr(), t.nbytes
+        if name == "memory" and p % 8:
+            raise ValueError("evm_step memory: K10's SHA3 reads a lane's row by aligned 8-byte "
+                             "words, so the field must start on an 8-byte boundary")
         self._ptrs[i] = p
         self._lo[i], self._hi[i] = p, p + n
         if not n:

@@ -379,16 +379,6 @@ __device__ inline void h_exp(const Frame& f, int p, int sp, bool m, Out& o) {
   charge(f, p, m, 50 * (int64_t)((top_bit8(e) + 8) / 8));
 }
 
-struct MemWindow {
-  const uint8_t* row;
-  int64_t off;
-  int M;
-  __device__ uint32_t operator()(int pos) const {
-    int64_t i = (int64_t)((uint64_t)off + (uint64_t)pos);
-    return (i >= 0 && i < M) ? row[i] : 0u;
-  }
-};
-
 __device__ inline void h_sha3(const Frame& f, int p, int sp, bool m, Out& o) {
   uint32_t w[8];
   peek(f, p, sp, 0, w);
@@ -400,8 +390,11 @@ __device__ inline void h_sha3(const Frame& f, int p, int sp, bool m, Out& o) {
   bool oob = expand_memory(f, p, m && ln > 0, wadd(off, ln));
   o.ok = m && !too_long && !oob;
   if (o.ok) {
+    // the lane's row, whole words (8-byte aligned: kernels.EvmStep checks
+    // the field, and M % 32 == 0); bytes at negative offsets read as 0
     int len = (int)(ln < 0 ? 0 : ln);  // <= max_hash here
-    keccak::keccak256(MemWindow{f.memory + (int64_t)p * f.M, off, f.M}, len, max_hash, o.r);
+    keccak::keccak256<false>(keccak::Window{f.memory + (int64_t)p * f.M, 0, f.M, off}, len,
+                             max_hash, o.r);
   }
   charge(f, p, o.ok, wmul(6, floordiv(wadd(ln, 31), 32)));
   trap(f, p, too_long, TRAP_HASH_LIMIT);

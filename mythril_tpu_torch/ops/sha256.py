@@ -5,7 +5,9 @@ PyTorch counterpart of the JAX package's ``ops/sha256.py``.
 :func:`sha256_device` sends a CUDA tensor to the hand-written kernel K4
 (``kernels/csrc/sha256.cu``) and a CPU tensor to :func:`sha256_plain`,
 which repeats the JAX function's arithmetic over int64 carriers (32-bit
-words masked with ``& 0xFFFFFFFF``).
+words masked with ``& 0xFFFFFFFF``). :func:`sha256_lanes` hashes only the
+lanes of a mask: K4 in place in the buffer on a CUDA tensor, the plain
+version over those lanes' rows on a CPU tensor.
 """
 
 from __future__ import annotations
@@ -98,6 +100,22 @@ def sha256_device(data: torch.Tensor, ln: torch.Tensor) -> torch.Tensor:
 
         return sha256(data.to(torch.uint8).contiguous(), ln.to(torch.int32).contiguous())
     return sha256_plain(data, ln)
+
+
+def sha256_lanes(data: torch.Tensor, ln: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """:func:`sha256_device` on the lanes of ``mask`` (bool[P]), zeros
+    elsewhere. On a CUDA tensor one K4 launch reads the selected rows where
+    they lie and writes every row of the result, so that a few lanes of a
+    wide buffer cost no index, gather or scatter."""
+    if data.is_cuda:
+        from ..kernels import sha256
+
+        return sha256(data.to(torch.uint8).contiguous(), ln.to(torch.int32).contiguous(),
+                      mask.to(torch.bool).contiguous())
+    idx = torch.nonzero(mask)[:, 0]
+    out = torch.zeros((data.shape[0], 8), dtype=torch.int64, device=data.device)
+    out[idx] = sha256_plain(data[idx], ln[idx])
+    return out
 
 
 def sha256_host(data: bytes) -> bytes:

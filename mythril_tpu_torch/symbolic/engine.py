@@ -898,8 +898,9 @@ def _compacted(mask_h, fn, P, dev, *args):
 def _apply_precompiles(sf: SymFrontier, pre, pid, a_off, a_len, r_off,
                        r_len) -> SymFrontier:
     """Execute precompile calls 0x1-0x9 for the `pre` lanes (the JAX
-    ``_apply_precompiles``): 0x2 sha256 (kernel K4) and 0x5 modexp
-    (kernel K5) on the device, on the lanes that need them only; 0x4
+    ``_apply_precompiles``): 0x2 sha256 (kernel K4, over the lane mask in
+    place on the card) and 0x5 modexp (kernel K5) on the device, on the
+    lanes that need them only; 0x4
     identity a byte copy; 0x1 ecrecover and 0x3/0x6-0x9 through one
     masked host round trip. Symbolic input bytes demote every concrete
     case to an uninterpreted leaf; a malformed input fails the call.
@@ -910,7 +911,7 @@ def _apply_precompiles(sf: SymFrontier, pre, pid, a_off, a_len, r_off,
     always available here: the JAX ``host_callbacks_supported()`` gate
     is True on every runtime this package runs on.)"""
     from ..ops.natives_host import BLAKE2F_MAX_ROUNDS
-    from ..ops.sha256 import sha256_device
+    from ..ops.sha256 import sha256_device, sha256_lanes
 
     f = sf.base
     P, M = f.memory.shape
@@ -973,8 +974,11 @@ def _apply_precompiles(sf: SymFrontier, pre, pid, a_off, a_len, r_off,
 
     sha_w = torch.zeros((P, 8), dtype=I64, device=dev)
     if sha_h.any():
-        sha_w = _compacted(sha_h, sha256_device, P, dev, inp,
-                           torch.clamp(a_len, 0, INW).to(I32))
+        sha_len = torch.clamp(a_len, 0, INW).to(I32)
+        # on the card one K4 launch over the lane mask, in place in the
+        # input window (no index, gather or scatter for its few lanes)
+        sha_w = (sha256_lanes(inp, sha_len, m_sha) if inp.is_cuda
+                 else _compacted(sha_h, sha256_device, P, dev, inp, sha_len))
     mod_w = torch.zeros((P, 8), dtype=I64, device=dev)
     if mod_h.any():
         b_w = _be_window_word(inp, torch.full_like(blen, 96), blen, INW)

@@ -1,5 +1,6 @@
 """K10's per-lane body (``kernels/csrc/evm_step.cuh``) built as host C++,
-with the K1 and K9 bodies it shares (``u256.cuh``).
+with the K1, K2 and K9 bodies it shares (``u256.cuh``, ``keccak.cuh``) and
+K4's (``sha256.cuh``).
 
 ``g++`` compiles the header with a small shim (``__device__`` and the
 like defined away) into a library whose entry points loop the lanes, as
@@ -7,7 +8,9 @@ like defined away) into a library whose entry points loop the lanes, as
 and counts ``n_running`` as that kernel does with its memset and ballot.
 The library also exports K1's and K9's C interfaces (``divmod_u256``,
 ``u256_mod_wide``, ``u256_exp``) as loops over the lanes of
-``u256.cuh``'s ``divmod8``, ``mod_wide16`` and ``exp8``.
+``u256.cuh``'s ``divmod8``, ``mod_wide16`` and ``exp8``, and K2's and
+K4's (``keccak256``, ``sha256``) as loops over ``keccak.cuh``'s and
+``sha256.cuh``'s per-lane bodies.
 The CPU tests drive it through the wrappers' own marshaling
 (``kernels.EvmStep``, ``kernels.evm_step_call``) and hold it to the plain
 versions. ``route`` makes the interpreter and the engine take it for a
@@ -32,6 +35,21 @@ _SHIM_H = """// host build of the CUDA headers' device functions
 #define __forceinline__ inline
 #define __constant__
 static inline int __clz(unsigned int x) { return x ? __builtin_clz(x) : 32; }
+static inline unsigned int __funnelshift_r(unsigned int lo, unsigned int hi, unsigned int s) {
+  return (unsigned int)((((unsigned long long)hi << 32) | lo) >> (s & 31));
+}
+// byte n of the result = byte (nibble n of s) & 7 of {y:x}, x the low four
+static inline unsigned int __byte_perm(unsigned int x, unsigned int y, unsigned int s) {
+  unsigned long long v = ((unsigned long long)y << 32) | x;
+  unsigned int r = 0;
+  for (int n = 0; n < 4; ++n)
+    r |= (unsigned int)((v >> (8 * ((s >> (4 * n)) & 7))) & 0xFF) << (8 * n);
+  return r;
+}
+struct uint4 { unsigned int x, y, z, w; };
+static inline uint4 make_uint4(unsigned int x, unsigned int y, unsigned int z, unsigned int w) {
+  return uint4{x, y, z, w};
+}
 """
 
 _ENTRY = ('extern "C" int evm_{e}(const uint64_t* ptrs, const int* dims, void*) {{\n'
@@ -40,7 +58,7 @@ _ENTRY = ('extern "C" int evm_{e}(const uint64_t* ptrs, const int* dims, void*) 
           "  return 0;\n}}\n")
 
 # the kernels' entry points as loops over the lanes
-_SHIM_CPP = "#include \"evm_step.cuh\"\n" + "".join(
+_SHIM_CPP = "#include \"evm_step.cuh\"\n#include \"sha256.cuh\"\n" + "".join(
     _ENTRY.format(e=e, body=f"  for (int p = 0; p < f.P; ++p) evm::entry_{e}(f, p);\n")
     for e in ("prologue", "dispatch", "epilogue")) + _ENTRY.format(
     e="superstep", body="  *f.n_running = 0;\n"
@@ -67,6 +85,22 @@ extern "C" int u256_mod_wide(const int64_t* x, const int64_t* m, int64_t* out, i
     u256::load(m + 8 * p, mm);
     u256::mod_wide16(xx, mm, rr);
     u256::store(out + 8 * p, rr);
+  }
+  return 0;
+}
+// K2's and K4's bodies (keccak.cuh, sha256.cuh) as loops over the lanes,
+// with the C interfaces of keccak256.cu and sha256.cu
+extern "C" int keccak256(const uint8_t* data, const int32_t* length, int64_t* out, int n,
+                         int max_len, void*) {
+  for (int p = 0; p < n; ++p) keccak::hash_row(data, length, out, p, n, max_len);
+  return 0;
+}
+extern "C" int sha256(const uint8_t* data, const int32_t* len, const uint8_t* mask, int64_t* out,
+                      int P, int N, void*) {
+  bool vec = k4::vec_rows(data, N);
+  for (int p = 0; p < P; ++p) {
+    if (vec) k4::hash_row<true>(data, len, mask, out, p, N);
+    else k4::hash_row<false>(data, len, mask, out, p, N);
   }
   return 0;
 }
